@@ -1,0 +1,49 @@
+"""Wrapper of the sliced-ELL semiring SpMV kernel (``csrc/ell_spmv.cu``)."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import bind
+from repro_torch.kernels.common import (LAUNCHES, SEMIRING_IDS, SEMIRINGS,
+                                        check_ell_operands, fold_block,
+                                        require_cuda_contiguous)
+from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
+
+_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p])
+
+
+def ell_spmv(idx, val, msk, x, *, semiring: str = "add_mul"):
+    """Semiring SpMV/SpMM: y[r] = ⊕_k val[r,k] ⊗ x[idx[r,k]] over the
+    occupied slots, the ⊕ identity elsewhere.
+
+    ``x`` is an (N,) frontier (returns (R,)) or an (N, L) stacked frontier
+    of L lanes (returns (R, L); the edge tiles are shared by the lanes).
+    CPU tensors go to the plain version; CUDA tensors launch the kernel on
+    the current stream, or raise.
+    """
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"unknown semiring {semiring!r}")
+    lanes = check_ell_operands(idx, val, msk, x, "ell_spmv")
+    if idx.device.type == "cpu":
+        return ell_spmv_ref(idx, val, msk, x, semiring=semiring)
+    require_cuda_contiguous("ell_spmv", idx, val, msk, x)
+    rows, k = idx.shape
+    y = torch.empty(idx.shape[:1] + x.shape[1:], dtype=torch.float32,
+                    device=x.device)
+    if y.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        rc = bind("ell_spmv", "graphhp_ell_spmv", _ARGS)(
+            SEMIRING_IDS[semiring], idx.data_ptr(), val.data_ptr(),
+            msk.data_ptr(), x.data_ptr(), y.data_ptr(), rows, k,
+            max(lanes, 1), fold_block(k),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"ell_spmv launch failed with CUDA error {rc}")
+    LAUNCHES["ell_spmv"] += 1
+    return y

@@ -1,0 +1,29 @@
+"""Plain PyTorch version of the sliced-ELL semiring SpMV.
+
+It follows the kernel's fold order (see ``kernels.common.slot_fold``), not
+a ``torch.sum``, so it is bit-identical to the CUDA kernel and to the
+reference's Pallas kernel for every semiring.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import SEMIRINGS, slot_fold
+
+
+def ell_spmv_ref(idx, val, msk, x, *, semiring: str = "add_mul"):
+    """y[r] = ⊕_k msk[r,k] ? val[r,k] ⊗ x[idx[r,k]] : ident, (R,) or (R, L)."""
+    combine, times, ident = SEMIRINGS[semiring]
+    col = (lambda a: a[:, None]) if x.dim() == 2 else (lambda a: a)
+    shape = idx.shape[:1] + x.shape[1:]
+
+    def slot(k):
+        v = times(col(val[:, k]), x[idx[:, k]])
+        return torch.where(col(msk[:, k]), v, ident)
+
+    fill = lambda: torch.full(shape, ident, dtype=torch.float32,
+                              device=x.device)
+    if idx.shape[1] == 0:
+        return fill()
+    return slot_fold(idx.shape[1], slot, combine, fill)

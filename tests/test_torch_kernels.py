@@ -1,0 +1,202 @@
+"""The port's kernel wrappers against the reference's Pallas kernels.
+
+The same numpy-seeded inputs go through the JAX wrapper (Pallas interpret
+mode, as ``tests/test_kernel_engine.py`` runs it) and through the port's
+``ops.py`` on CPU tensors, which runs the plain PyTorch version.  Both fold
+the slot axis in the same order, so the outputs must be bit-identical for
+every semiring, for slot counts K of 8, 128 and 136 (a ragged second slot
+block), and for an (N, L) lane frontier.
+
+One exception, and why: for the additive kernels (``ell_spmv`` add_mul,
+``pr_step``) with a lane frontier, XLA:CPU contracts the reference's
+``partial + val*x`` into fused multiply-adds for some lane widths, so the
+reference's lane column j can differ in the last bit from its own
+single-lane dispatch.  The port never contracts.  Those cases therefore
+use inputs whose products are exact in float32 (a contraction cannot
+change a bit), and a separate test holds each lane column of the port,
+with arbitrary inputs, bit-equal to the reference's single-lane dispatch —
+the lane contract the reference documents.
+
+The CUDA kernels against their plain versions need a GPU: those tests are
+marked ``gpu`` and skip here (``chip_smoke.py`` covers them on the card).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ell_spmv import ell_spmv as jax_ell_spmv
+from repro.kernels.min_step import fused_min_step as jax_min_step
+from repro.kernels.pr_step import fused_pr_step as jax_pr_step
+
+from repro_torch.kernels.common import LAUNCHES, SEMIRINGS
+from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
+from repro_torch.kernels.min_step import fused_min_step, fused_min_step_ref
+from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
+
+ALL = ("add_mul", "min_add", "max_add", "min_mul", "max_min")
+MONO = ("min_add", "max_add", "min_mul", "max_min")
+KS = (8, 128, 136)
+LANES = (0, 3)
+R = 24          # rows; frontier N = R so the fused kernels' xrow defaults hold
+
+
+def _bits_equal(want, got):
+    want = np.asarray(want)
+    got = got.numpy()
+    assert want.shape == got.shape and want.dtype == got.dtype, \
+        (want.shape, want.dtype, got.shape, got.dtype)
+    assert np.array_equal(want.view(np.uint8), got.view(np.uint8)), \
+        np.nonzero(want != got)
+
+
+def _inputs(seed, k, lanes, exact=False):
+    """ELL tile + frontier.  ``exact``: dyadic values of few significant
+    bits, whose products float32 holds exactly."""
+    rng = np.random.RandomState(seed)
+    shape = (R, lanes) if lanes else (R,)
+    idx = rng.randint(0, R, size=(R, k)).astype(np.int32)
+    msk = rng.rand(R, k) < 0.7
+    if exact:
+        val = (rng.randint(1, 16, size=(R, k)) / 8.0).astype(np.float32)
+        x = (rng.randint(0, 64, size=shape) / 16.0).astype(np.float32)
+    else:
+        val = rng.uniform(0.05, 2.0, size=(R, k)).astype(np.float32)
+        x = rng.uniform(0.0, 3.0, size=shape).astype(np.float32)
+    send = rng.rand(*shape) < 0.6
+    row = rng.uniform(0.0, 3.0, size=shape).astype(np.float32)
+    return idx, val, msk, x, send, row
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("semiring", ALL)
+def test_ell_spmv_matches_pallas(semiring, k, lanes):
+    idx, val, msk, x, _, _ = _inputs(k + lanes, k, lanes,
+                                     exact=lanes > 0 and semiring == "add_mul")
+    want = jax_ell_spmv(idx, val, msk, x, semiring=semiring)
+    got = ell_spmv(*_t(idx, val, msk, x), semiring=semiring)
+    _bits_equal(want, got)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("semiring", MONO)
+def test_min_step_matches_pallas(semiring, k, lanes):
+    idx, val, msk, x, send, row = _inputs(100 + k + lanes, k, lanes)
+    # default xrow/extra for a single frontier, an explicit spill operand
+    # with lanes (one reference compile per case keeps the file fast)
+    extra = row if lanes else None
+    want = jax_min_step(idx, val, msk, x, send, x, extra, semiring=semiring)
+    got = fused_min_step(*_t(idx, val, msk, x, send), None,
+                         None if extra is None else _t(extra)[0],
+                         semiring=semiring)
+    for w, g in zip(want, got):
+        _bits_equal(w, g)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("k", KS)
+def test_pr_step_matches_pallas(k, lanes):
+    idx, val, msk, x, send, row = _inputs(200 + k + lanes, k, lanes,
+                                          exact=lanes > 0)
+    delta = (x / 64.0).astype(np.float32)
+    extra = (row / 128.0).astype(np.float32) if lanes else row * 1e-3
+    # a dyadic damping keeps the lane case's products exact (module doc)
+    damping = 0.75 if lanes else 0.85
+    # the default (zero) spill operand at K = 8, an explicit one otherwise
+    ex = None if k == 8 else extra
+    args = (idx, val, msk, delta, send, row)
+    want = jax_pr_step(*args, ex, damping=damping, tol=1e-3)
+    got = fused_pr_step(*_t(*args), None if ex is None else _t(ex)[0],
+                        damping=damping, tol=1e-3)
+    for w, g in zip(want, got):
+        _bits_equal(w, g)
+
+
+@pytest.mark.parametrize("kernel", ["ell_spmv", "pr_step"])
+@pytest.mark.parametrize("k", (8, 136))
+def test_lane_columns_match_single_lane_pallas(kernel, k):
+    """Arbitrary float inputs: each lane column of the port equals the
+    reference's single-lane dispatch of that column, bit for bit."""
+    idx, val, msk, x, send, row = _inputs(300 + k, k, lanes=3)
+    if kernel == "ell_spmv":
+        got = ell_spmv(*_t(idx, val, msk, x)).numpy()
+    else:
+        got = fused_pr_step(*_t(idx, val, msk, x, send, row),
+                            damping=0.85, tol=1e-3)[1].numpy()
+    for j in range(3):
+        cols = [np.ascontiguousarray(a[:, j]) for a in (x, send, row)]
+        if kernel == "ell_spmv":
+            want = jax_ell_spmv(idx, val, msk, cols[0])
+        else:
+            want = jax_pr_step(idx, val, msk, *cols, damping=0.85,
+                               tol=1e-3)[1]
+        _bits_equal(want, torch.from_numpy(np.ascontiguousarray(got[:, j])))
+
+
+def test_plain_versions_do_not_count_launches():
+    before = dict(LAUNCHES)
+    idx, val, msk, x, send, row = _inputs(7, 8, 0)
+    ell_spmv(*_t(idx, val, msk, x))
+    fused_min_step(*_t(idx, val, msk, x, send))
+    fused_pr_step(*_t(idx, val, msk, x, send, row))
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["idx_dtype", "val_shape", "msk_dtype",
+                                 "x_rank", "send_shape", "device"])
+def test_wrappers_reject_what_the_kernels_do_not_take(bad):
+    idx, val, msk, x, send, row = _t(*_inputs(8, 8, 0))
+    if bad == "idx_dtype":
+        idx = idx.long()
+    elif bad == "val_shape":
+        val = val[:, :4]
+    elif bad == "msk_dtype":
+        msk = msk.to(torch.uint8)
+    elif bad == "x_rank":
+        x = x[:, None, None]
+    elif bad == "send_shape":
+        send = send[:5]
+    else:
+        idx, val, msk, x, send, row = (t.to("meta") for t in
+                                       (idx, val, msk, x, send, row))
+    with pytest.raises(ValueError):
+        if bad == "send_shape":
+            fused_min_step(idx, val, msk, x, send)
+        else:
+            ell_spmv(idx, val, msk, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", LANES)
+def test_cuda_kernels_match_plain_versions(lanes):
+    """On the card: each kernel bit-identical to its plain version on the
+    same CUDA tensors, and each launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    idx, val, msk, x, send, row = (t.cuda() for t in
+                                   _t(*_inputs(9, 136, lanes)))
+    before = dict(LAUNCHES)
+    for sr in ALL:
+        _bits_equal(ell_spmv_ref(idx, val, msk, x, semiring=sr).cpu().numpy(),
+                    ell_spmv(idx, val, msk, x, semiring=sr).cpu())
+    for sr in MONO:
+        ident = torch.full_like(x, SEMIRINGS[sr][2])
+        want = fused_min_step_ref(idx, val, msk, x, send, x, ident,
+                                  semiring=sr)
+        got = fused_min_step(idx, val, msk, x, send, semiring=sr)
+        for w, g in zip(want, got):
+            _bits_equal(w.cpu().numpy(), g.cpu())
+    want = fused_pr_step_ref(idx, val, msk, x, send, row,
+                             torch.zeros_like(row), tol=1e-3)
+    got = fused_pr_step(idx, val, msk, x, send, row, tol=1e-3)
+    for w, g in zip(want, got):
+        _bits_equal(w.cpu().numpy(), g.cpu())
+    assert LAUNCHES["ell_spmv"] == before["ell_spmv"] + len(ALL)
+    assert LAUNCHES["min_step"] == before["min_step"] + len(MONO)
+    assert LAUNCHES["pr_step"] == before["pr_step"] + 1
