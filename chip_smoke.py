@@ -26,7 +26,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
               drops residuals <= tolerance at each receipt).
 6. kernels  — every kernel's wrapper on the card at every shape the main
               path gave it, held bit-identical to its plain PyTorch version
-              on the same CUDA tensors; times the kernel, the plain version
+              on the same CUDA tensors, and the engine's fused steps
+              (``fused_step_fn``) against the same steps built over the
+              plain versions; times the kernel, the plain version
               and, where one PyTorch call computes the same function, that
               call (``library_ms``), beside the bound the card's memory rate
               and float32 rate set for the same work.
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -83,20 +86,24 @@ def sync():
     torch.cuda.synchronize()
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean ms per call over ``reps`` calls after one warm-up, by CUDA
-    events around the whole run."""
+def time_ms(fn, reps: int, windows: int = 5) -> float:
+    """Median over ``windows`` CUDA-event windows of ``reps`` calls each,
+    after one warm-up call, of the mean ms per call: one stalled window
+    does not move it."""
     import torch
     fn()
     sync()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    sync()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 # --------------------------------------------------------------------------
@@ -275,18 +282,29 @@ def _max_abs_err(a, b):
     return float(d.max()) if d.numel() else 0.0
 
 
-def _bound_ms(msk, idx, rows_bytes_per_row, frontier_bytes, rows, lanes,
-              ops_per_slot):
-    """Least time for the work these inputs need: each mask byte, the
-    idx/val words of occupied slots, each distinct frontier entry read and
-    each row operand/output once, over the HBM rate; the per-slot
-    operations over the float32 rate."""
+def _bound_ms(msk, idx, rows_bytes, ops_per_slot, flag=None,
+              x_is_row=False):
+    """Least time for the work these inputs need, over the HBM rate: each
+    mask byte, the idx/val words of occupied slots, ``rows_bytes`` of row
+    operands and outputs per row, and the frontier entries of the distinct
+    sources of occupied slots.  A plain product reads a 4-byte value per
+    source.  A fused step (``flag``: its send flags) reads a flag byte per
+    source and the value only where the flag is set; where the value
+    vector is also the row operand (``x_is_row``, the engine's
+    ``xrow = x``) those words are already counted per row.  Against that,
+    the per-slot operations over the float32 rate."""
     import torch
     nnz = int(msk.sum())
-    uniq = int(torch.unique(idx[msk]).numel()) if nnz else 0
-    nbytes = (msk.numel() + 8 * nnz + frontier_bytes * uniq * max(lanes, 1)
-              + rows_bytes_per_row * rows * max(lanes, 1))
-    ops = ops_per_slot * nnz * max(lanes, 1)
+    src = torch.unique(idx[msk])
+    rows = idx.shape[0]
+    nbytes = msk.numel() + 8 * nnz + rows_bytes * rows
+    if flag is None:
+        nbytes += 4 * src.numel()
+    else:
+        nbytes += src.numel()
+        if not x_is_row:
+            nbytes += 4 * int(flag[src.long()].sum())
+    ops = ops_per_slot * nnz
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -310,12 +328,14 @@ def _csr_library(idx, val, msk, n_cols):
                                        size=(idx.shape[0], n_cols))
 
 
-def kernel_checks(sssp_graph, sssp_es, pr_graph, pr_es):
+def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
     """Every kernel at every main-path shape, against its plain version on
-    the same CUDA tensors.  Returns (rows of the detailed report, the
-    timed case of each kernel)."""
+    the same CUDA tensors, and the engine's fused steps (``fused_step_fn``)
+    against the same steps over the plain versions.  Returns (rows of the
+    detailed report, the timed case of each kernel)."""
     import torch
     from repro_torch.core.runtime import slice_flat
+    from repro_torch.exec.local_phase import _spill_extra, fused_step_fn
     from repro_torch.kernels.common import SEMIRINGS
     from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
     from repro_torch.kernels.min_step import (fused_min_step,
@@ -337,7 +357,7 @@ def kernel_checks(sssp_graph, sssp_es, pr_graph, pr_es):
         row = dict(name=name, shape=label, bit_identical=same,
                    max_abs_err=err)
         row["ms"] = time_ms(fn, reps)
-        row["plain_ms"] = time_ms(ref, plain_reps)
+        row["plain_ms"] = time_ms(ref, plain_reps, windows=3)
         row["bound_ms"], row["bound_by"], row["bytes"], row["nnz"] = bound
         row["library_ms"] = time_ms(library, reps) if library else None
         say("kernels", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
@@ -348,37 +368,59 @@ def kernel_checks(sssp_graph, sssp_es, pr_graph, pr_es):
                                  f"differ (max abs err {err})")
         return row
 
-    # --- min_step: the SSSP local phase's base bin ------------------------
-    p = sssp_graph.n_partitions
-    x = sssp_es.state["dist"].reshape(-1).contiguous()
-    step_views = [slice_flat(s, sssp_graph, p) for s in sssp_graph.local_ell]
-    _, idx, msk = step_views[0]
-    val = sssp_graph.local_ell[0].val.reshape(-1, sssp_graph.local_ell[0].kb)
-    send = rand_send(x.shape)
-    inf = torch.full_like(x, float("inf"))
+    def step_operands(app, graph, prog, kind, args):
+        """The engine's fused step on ``args`` against the same step over
+        the plain versions; returns the fused kernel's operands as the
+        step passes them, its spill bins' ``extra`` included."""
+        p = graph.n_partitions
+        step, slices, views = fused_step_fn(graph, prog, kind, p)
+        plain, _, _ = fused_step_fn(graph, prog, kind, p, plain=True)
+        got, want = step(*args), plain(*args)
+        sync()
+        same, err = _same(got, want), _max_abs_err(got, want)
+        say("kernels", step=kind, app=app, spill_bins=len(slices) - 1,
+            bit_identical=same, max_abs_err=err)
+        report.append(dict(name=f"{kind} step", shape=f"{app} fused step",
+                           bit_identical=same, max_abs_err=err))
+        if not same:
+            raise AssertionError(f"{app} {kind} step: kernels and plain "
+                                 f"versions differ (max abs err {err})")
+        ch = prog.channels[0]
+        _, idx, msk = views[0]
+        val = prog.ell_edge_values(ch, slices[0].val).reshape(
+            -1, slices[0].kb)
+        extra = _spill_extra(graph, prog, ch, slices, views,
+                             {ch.name: args[-2]}, args[-1], p)
+        if extra is None:
+            extra = torch.full((idx.shape[0],), SEMIRINGS[ch.semiring][2],
+                               device="cuda")
+        flat = [a.reshape(-1).contiguous() for a in args]
+        return idx, val, msk, flat, extra
+
+    # --- min_step: the SSSP local phase's step over its base bin ----------
+    x = sssp_es.state["dist"].contiguous()
+    idx, val, msk, (xf, sf), extra = step_operands(
+        "sssp", sssp_graph, sssp_prog, "min_step", (x, rand_send(x.shape)))
     timed = {}
     timed["min_step"] = case(
         "min_step", f"sssp local base {tuple(idx.shape)}",
-        lambda: fused_min_step(idx, val, msk, x, send),
-        lambda: fused_min_step_ref(idx, val, msk, x, send, x, inf),
-        _bound_ms(msk, idx, 17, 5, idx.shape[0], 0, 2))
+        lambda: fused_min_step(idx, val, msk, xf, sf, xf, extra),
+        lambda: fused_min_step_ref(idx, val, msk, xf, sf, xf, extra),
+        _bound_ms(msk, idx, 17, 2, flag=sf, x_is_row=True))
 
-    # --- pr_step: the PageRank local phase's base bin ---------------------
-    p = pr_graph.n_partitions
-    views = [slice_flat(s, pr_graph, p) for s in pr_graph.local_ell]
-    _, idx, msk = views[0]
-    val = pr_graph.local_ell[0].val.reshape(-1, pr_graph.local_ell[0].kb)
-    rank = pr_es.state["rank"].reshape(-1).contiguous()
+    # --- pr_step: the PageRank local phase's step, spill bins in extra ----
+    rank = pr_es.state["rank"].contiguous()
     delta = (rank * 1e-3).contiguous()
-    send = rand_send(delta.shape)
-    zeros = torch.zeros_like(rank)
+    idx, val, msk, (rf, df, sf), extra = step_operands(
+        "pagerank", pr_graph, pr_prog, "pr_step",
+        (rank, delta, rand_send(delta.shape)))
     timed["pr_step"] = case(
-        "pr_step", f"pagerank local base {tuple(idx.shape)}",
-        lambda: fused_pr_step(idx, val, msk, delta, send, rank, zeros,
-                              tol=PR_TOL),
-        lambda: fused_pr_step_ref(idx, val, msk, delta, send, rank, zeros,
-                                  tol=PR_TOL),
-        _bound_ms(msk, idx, 17, 5, idx.shape[0], 0, 3))
+        "pr_step", f"pagerank local base {tuple(idx.shape)}, spill extra",
+        lambda: fused_pr_step(idx, val, msk, df, sf, rf, extra,
+                              damping=pr_prog.damping, tol=pr_prog.tol),
+        lambda: fused_pr_step_ref(idx, val, msk, df, sf, rf, extra,
+                                  damping=pr_prog.damping, tol=pr_prog.tol),
+        _bound_ms(msk, idx, 17, 3, flag=sf))
 
     # --- ell_spmv: every bin of both graphs' layouts ----------------------
     def frontier(graph, es, name, semiring, edges):
@@ -412,7 +454,7 @@ def kernel_checks(sssp_graph, sssp_es, pr_graph, pr_es):
                         ell_spmv(idx, val, msk, x, semiring=sr),
                     lambda idx=idx, val=val, msk=msk, x=x, sr=sr:
                         ell_spmv_ref(idx, val, msk, x, semiring=sr),
-                    _bound_ms(msk, idx, 4, 4, idx.shape[0], 0, 2),
+                    _bound_ms(msk, idx, 4, 2),
                     library=lib, reps=5 if long_row else 20,
                     plain_reps=1 if long_row else 2)
                 # the ell_spmv of the JSON line: the PageRank local phase's
@@ -427,28 +469,27 @@ def kernel_checks(sssp_graph, sssp_es, pr_graph, pr_es):
     msk = s.msk.reshape(-1, s.kb)[:65536].contiguous()
     xl = torch.rand((idx.shape[0], 4), generator=gen, device="cuda")
     sl = rand_send(xl.shape)
+    el = torch.rand(xl.shape, generator=gen, device="cuda")
     for sr in SEMIRINGS:
         ok = _same(ell_spmv(idx, val, msk, xl, semiring=sr),
                    ell_spmv_ref(idx, val, msk, xl, semiring=sr))
+        # non-identity spill partials, as the engine's extra carries
         if sr != "add_mul":
-            ident = torch.full_like(xl, SEMIRINGS[sr][2])
             ok = ok and _same(
-                fused_min_step(idx, val, msk, xl, sl, semiring=sr),
-                fused_min_step_ref(idx, val, msk, xl, sl, xl, ident,
+                fused_min_step(idx, val, msk, xl, sl, xl, el, semiring=sr),
+                fused_min_step_ref(idx, val, msk, xl, sl, xl, el,
                                    semiring=sr))
         else:
             ok = ok and _same(
-                fused_pr_step(idx, val, msk, xl, sl, xl, tol=1e-3),
-                fused_pr_step_ref(idx, val, msk, xl, sl, xl,
-                                  torch.zeros_like(xl), tol=1e-3))
+                fused_pr_step(idx, val, msk, xl, sl, xl, el * 1e-3,
+                              tol=1e-3),
+                fused_pr_step_ref(idx, val, msk, xl, sl, xl, el * 1e-3,
+                                  tol=1e-3))
         sync()
         say("kernels", sweep=sr, lanes=4, rows=idx.shape[0],
             bit_identical=ok)
         if not ok:
             raise AssertionError(f"lane sweep {sr}: kernel != plain")
-    if "ell_spmv" not in timed:           # no local spill bin: widest bin
-        timed["ell_spmv"] = max((r for r in report if r["name"] == "ell_spmv"),
-                                key=lambda r: r["bytes"])
     return report, timed
 
 
@@ -494,9 +535,9 @@ def main() -> int:
     sssp_graph, sssp_data, sssp_build_s = grid_sssp_graph()
     pr_graph, pr_data, pr_build_s = rmat_pagerank_graph()
 
-    sssp_es, sssp_run = run_main("sssp", sssp_graph, SSSP(source=0))
-    pr_es, pr_run = run_main("pagerank", pr_graph,
-                             IncrementalPageRank(tolerance=PR_TOL))
+    sssp_prog, pr_prog = SSSP(source=0), IncrementalPageRank(tolerance=PR_TOL)
+    sssp_es, sssp_run = run_main("sssp", sssp_graph, sssp_prog)
+    pr_es, pr_run = run_main("pagerank", pr_graph, pr_prog)
     launches = {k: sssp_run["launches"][k] + pr_run["launches"][k]
                 for k in KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
@@ -506,7 +547,8 @@ def main() -> int:
     sssp_err = check_sssp(sssp_graph, sssp_es, sssp_data)
     pr_err = check_pagerank(pr_graph, pr_es, pr_data)
 
-    report, timed = kernel_checks(sssp_graph, sssp_es, pr_graph, pr_es)
+    report, timed = kernel_checks(sssp_graph, sssp_prog, sssp_es,
+                                  pr_graph, pr_prog, pr_es)
     profiles = dict(
         sssp=phase_profile("sssp", sssp_graph, SSSP(source=0), 2),
         pagerank=phase_profile("pagerank", pr_graph,

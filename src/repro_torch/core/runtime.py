@@ -213,17 +213,20 @@ def _scatter(semiring: str, y: torch.Tensor, rows: torch.Tensor,
     return ext[:n]
 
 
-def ell_combine_bins(prog, ch, slices, views, x, y):
+def ell_combine_bins(prog, ch, slices, views, x, y, spmv=None):
     """⊕-combine each bin's ``ell_spmv`` partials onto the flat destination
     vector ``y`` — the dense base bin via the semiring combine, spill bins
     via the semiring scatter over their row lists.  The one implementation
-    behind `deliver`'s kernel path and the fused phases' spill operand."""
+    behind `deliver`'s kernel path and the fused phases' spill operand.
+    ``spmv`` replaces the per-bin product (``ell_spmv_ref`` to run the
+    plain version on the same tensors)."""
     from repro_torch.kernels.ell_spmv import ell_spmv
 
+    spmv = spmv or ell_spmv
     combine, _, _ = SEMIRINGS[ch.semiring]
     for s, (rows, idx, msk) in zip(slices, views):
         v = prog.ell_edge_values(ch, s.val).reshape(-1, s.kb)
-        yb = ell_spmv(idx, v, msk, x, semiring=ch.semiring)
+        yb = spmv(idx, v, msk, x, semiring=ch.semiring)
         y = combine(y, yb) if s.dense else _scatter(ch.semiring, y, rows, yb)
     return y
 

@@ -5,7 +5,8 @@ points — the participation/scheduling masks, the fused local phases through
 the `pr_step` / `min_step` CUDA kernels, and the generic apply -> deliver
 loop — behind one entry point, :func:`local_phase`.  The hybrid policy
 calls it once per global iteration; ``chip_smoke.py`` calls
-:func:`fused_step_fn` directly, so the kernels it checks are the ones the
+:func:`fused_step_fn` directly and holds it against the same step built
+over the kernels' plain versions, so the steps it checks are the ones the
 engine runs.
 
 The reference iterates a device-side ``lax.while_loop``.  Here the loop is
@@ -31,8 +32,9 @@ from repro_torch.core.vertex_program import StepInfo, VertexProgram
 from repro_torch.exec.syncs import host_read
 from repro_torch.kernels.common import (MONOTONE_SEMIRINGS, SEMIRINGS, f32,
                                         semiring_improves)
-from repro_torch.kernels.min_step import fused_min_step
-from repro_torch.kernels.pr_step import fused_pr_step
+from repro_torch.kernels.ell_spmv import ell_spmv_ref
+from repro_torch.kernels.min_step import fused_min_step, fused_min_step_ref
+from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
 
 __all__ = ["local_phase", "fused_step_fn", "participation_mask",
            "partition_running", "fused_local_kernel"]
@@ -84,7 +86,7 @@ def fused_local_kernel(graph: PartitionedGraph, prog: VertexProgram,
 
 
 def _spill_extra(graph: PartitionedGraph, prog, ch, slices, views, out_d,
-                 send, p):
+                 send, p, spmv=None):
     """⊕-combined spill-bin contributions (P*Vp, ...) for a fused kernel's
     ``extra`` operand — None when the layout is a single dense bin."""
     if len(slices) == 1:
@@ -94,11 +96,12 @@ def _spill_extra(graph: PartitionedGraph, prog, ch, slices, views, out_d,
     x = x.reshape((-1,) + tuple(x.shape[2:])).to(torch.float32)
     extra = torch.full((p * graph.vp,) + tuple(x.shape[1:]), ident,
                        dtype=torch.float32, device=x.device)
-    return ell_combine_bins(prog, ch, slices[1:], views[1:], x, extra)
+    return ell_combine_bins(prog, ch, slices[1:], views[1:], x, extra,
+                            spmv=spmv)
 
 
 def fused_step_fn(graph: PartitionedGraph, prog: VertexProgram, kind: str,
-                  p: int):
+                  p: int, *, plain: bool = False):
     """The single fused pseudo-superstep over the graph's sliced-ELL layout
     — the one implementation the engine's local phases and ``chip_smoke.py``
     both run.
@@ -106,7 +109,9 @@ def fused_step_fn(graph: PartitionedGraph, prog: VertexProgram, kind: str,
     'pr_step': ``step(rank, delta, send) -> (rank', d_in, send')``;
     'min_step': ``step(x, send) -> (x', d_in, send')``.  All tensors are
     (p, Vp) — or (p, Vp, L) for a lane channel — and spill bins beyond the
-    dense base feed the kernel's ``extra`` operand through ``ell_spmv``.
+    dense base feed the kernel's ``extra`` operand through ``ell_spmv``
+    (the ⊕ identity when there are none, still combined in).  ``plain``
+    builds the same step over the kernels' plain versions (``*_ref``).
     Returns ``(step, slices, views)``.
     """
     ch = prog.channels[0]
@@ -114,28 +119,37 @@ def fused_step_fn(graph: PartitionedGraph, prog: VertexProgram, kind: str,
     slices = graph.local_ell
     views = [slice_flat(s, graph, p) for s in slices]
     _, idx, msk = views[0]
+    spmv = ell_spmv_ref if plain else None
     flat = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))
     unflat = lambda a: a.reshape((p, vp) + tuple(a.shape[1:]))
 
     if kind == "pr_step":
         val = slices[0].val.reshape(-1, slices[0].kb)
+        kern = fused_pr_step_ref if plain else fused_pr_step
 
         def step(rank, delta, send):
             extra = _spill_extra(graph, prog, ch, slices, views,
-                                 {ch.name: delta}, send, p)
-            r, d, s = fused_pr_step(idx, val, msk, flat(delta), flat(send),
-                                    flat(rank), extra, damping=prog.damping,
-                                    tol=prog.tol)
+                                 {ch.name: delta}, send, p, spmv)
+            if extra is None:
+                extra = torch.zeros_like(flat(rank))
+            r, d, s = kern(idx, val, msk, flat(delta), flat(send),
+                           flat(rank), extra, damping=prog.damping,
+                           tol=prog.tol)
             return unflat(r), unflat(d), unflat(s)
     elif kind == "min_step":
         val = prog.ell_edge_values(ch, slices[0].val).reshape(
             -1, slices[0].kb)
+        kern = fused_min_step_ref if plain else fused_min_step
+        ident = SEMIRINGS[ch.semiring][2]
 
         def step(x, send):
+            xf = flat(x)
             extra = _spill_extra(graph, prog, ch, slices, views,
-                                 {ch.name: x}, send, p)
-            xn, d, s = fused_min_step(idx, val, msk, flat(x), flat(send),
-                                      extra=extra, semiring=ch.semiring)
+                                 {ch.name: x}, send, p, spmv)
+            if extra is None:
+                extra = torch.full_like(xf, ident)
+            xn, d, s = kern(idx, val, msk, xf, flat(send), xf, extra,
+                            semiring=ch.semiring)
             return unflat(xn), unflat(d), unflat(s)
     else:
         raise ValueError(kind)

@@ -120,6 +120,33 @@ def test_converted_state_steps_like_reference(app):
     assert_tree_equal(want, got, "state")
 
 
+@pytest.mark.parametrize("plain", [False, True])
+@pytest.mark.parametrize("app", ["sssp", "pagerank"])
+def test_fused_step_matches_reference_step(app, plain):
+    """One fused pseudo-superstep on the hub graph, whose spill bins feed
+    the kernel's ``extra`` operand, equals the reference's step bit for
+    bit — through the wrappers and through the plain-version build that
+    ``chip_smoke.py`` holds the card's step against."""
+    import jax.numpy as jnp
+    from repro.exec.local_phase import fused_step_fn as jax_fused_step_fn
+
+    from repro_torch.exec.local_phase import fused_step_fn
+
+    jax_graph, graph = _graphs("hub")
+    make_jax, make_port = PROGRAMS[app]
+    kind, p = make_port().fused_kernel, graph.n_partitions
+    rng = np.random.default_rng(3)
+    x = rng.random((p, graph.vp), dtype=np.float32)
+    send = rng.random((p, graph.vp)) < 0.5
+    args = (x, send) if kind == "min_step" else (x + 1, x * 1e-2, send)
+    jstep, _, _ = jax_fused_step_fn(jax_graph, make_jax(), kind, p)
+    want = [np.asarray(a) for a in jstep(*map(jnp.asarray, args))]
+    step, _, _ = fused_step_fn(graph, make_port(), kind, p, plain=plain)
+    got = [a.numpy() for a in step(*map(torch.from_numpy, args))]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
 @pytest.mark.parametrize("app", ["sssp", "pagerank"])
 def test_metrics_off_keeps_results_and_zero_counters(app):
     _, graph = _graphs(app)
