@@ -9,6 +9,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
               power limit.
 2. build    — compiles the three CUDA kernels from ``src/repro_torch/csrc``
               with nvcc (one process per source, in parallel).
+2a. sweep   — both ``ell_spmv`` paths (K = 7, 8, 16; 128; 300, 7,056) and
+              ``min_step`` (K = 7, 8, 16) on synthetic tiles against their
+              plain versions: every semiring, (N,) and (N, 4) frontiers,
+              1 % / 50 % / 100 % occupancy and empty fold blocks between
+              occupied ones, signed zeros and ±inf ties; bit-identical,
+              NaN by position only.
 3. graphs   — builds the two main-path graphs on the host and moves them
               to the card: SSSP on a 2048 x 2048 road-like grid (4,194,304
               vertices, 16,769,024 weighted edges, 8 x 8 geographic tiles,
@@ -28,10 +34,12 @@ Phases, one line each (any failure exits non-zero and prints no result):
               path gave it, held bit-identical to its plain PyTorch version
               on the same CUDA tensors, and the engine's fused steps
               (``fused_step_fn``) against the same steps built over the
-              plain versions; times the kernel, the plain version
-              and, where one PyTorch call computes the same function, that
-              call (``library_ms``), beside the bound the card's memory rate
-              and float32 rate set for the same work.
+              plain versions; times the kernel and, where one PyTorch call
+              computes the same function, that call (``library_ms``) as
+              device time (a CUDA graph of a run of calls, replayed;
+              ``launch_path_ms`` is the same run issued call by call from
+              Python), the plain version call by call, beside the bound the
+              card's memory rate and float32 rate set for the same work.
 7. profile  — the first global iterations of each run again under
               ``torch.profiler``: device busy share and device time by
               kernel, ours and PyTorch's glue around them.
@@ -89,7 +97,8 @@ def sync():
 def time_ms(fn, reps: int, windows: int = 5) -> float:
     """Median over ``windows`` CUDA-event windows of ``reps`` calls each,
     after one warm-up call, of the mean ms per call: one stalled window
-    does not move it."""
+    does not move it.  The calls are issued from Python one by one, so a
+    call shorter than its host-side launch path measures the host."""
     import torch
     fn()
     sync()
@@ -104,6 +113,43 @@ def time_ms(fn, reps: int, windows: int = 5) -> float:
         sync()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int, windows: int = 5) -> float:
+    """Like :func:`time_ms`, but the ``reps`` calls are captured once into
+    a CUDA graph and each window replays it: device time per call, without
+    the Python launch path between calls (which is longer than the short
+    kernels themselves).  Falls back to :func:`time_ms` where ``fn`` cannot
+    be captured; returns (ms, "graph" | "eager")."""
+    import torch
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        sync()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        sync()
+    except RuntimeError:
+        sync()
+        return time_ms(fn, reps, windows), "eager"
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times), "graph"
 
 
 # --------------------------------------------------------------------------
@@ -282,6 +328,132 @@ def _max_abs_err(a, b):
     return float(d.max()) if d.numel() else 0.0
 
 
+def _same_nan(a, b):
+    """Bit-identical outside NaNs, and NaN at the same positions.  NaN
+    payloads are not compared: a kernel's select and torch's ops may carry
+    different ones."""
+    import torch
+    if isinstance(a, tuple):
+        return all(_same_nan(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape:
+        return False
+    if a.dtype == torch.bool:
+        return bool(torch.equal(a, b))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and \
+        bool(torch.equal(_bits(a)[~na], _bits(b)[~nb]))
+
+
+# --------------------------------------------------------------------------
+# synthetic sweep: both ell_spmv paths and min_step on edge-case values
+# --------------------------------------------------------------------------
+
+# (K, rows) of the ell_spmv tiles: the narrow path (K = 7 takes the scalar
+# fallback, 8 and 16 the unrolled rows), a warp per row (128; two rows a
+# warp from 33,792 rows on), a block per row with a ragged last fold block
+# (300) and the local hub bin's width
+SWEEP_SPMV = ((7, 512), (8, 512), (16, 512), (128, 512), (128, 40000),
+              (300, 256), (7056, 32))
+SWEEP_MIN_STEP = ((7, 512), (8, 512), (16, 512))
+SWEEP_FILLS = {"1%": 0.01, "50%": 0.5, "100%": 1.0, "gaps": 0.5}
+SWEEP_N = 4096            # frontier length
+
+
+def _sweep_tile(gen, rows, k, fill, n):
+    """idx/msk of a synthetic tile.  ``gaps``: every third fold block (or
+    4-slot chunk, below 128 slots) and every fifth row all padding, between
+    occupied ones."""
+    import torch
+    idx = torch.randint(0, n, (rows, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    msk = torch.rand((rows, k), generator=gen, device="cuda") < \
+        SWEEP_FILLS[fill]
+    if fill == "gaps":
+        chunk = torch.arange(k, device="cuda") // (128 if k >= 128 else 4)
+        msk &= (chunk % 3 != 1)[None, :]
+        msk &= (torch.arange(rows, device="cuda") % 5 != 0)[:, None]
+    return idx, msk
+
+
+def _sweep_values(gen, shape, mode, zero=None, neg_rows=False):
+    """``zeros``: signed zeros only, random signs (``neg_rows``: every
+    fourth row all -0.0) or all ``zero``, the zero that keeps a ⊗-product's
+    sign that of the other operand, so folds of ±0 products hit the
+    signed-zero ties and the skipped-padding rule.  ``infs``: ±inf, ±0, ±1 mixed into
+    uniform values, giving ±inf ties and NaNs (inf - inf, 0 · inf)."""
+    import torch
+    kw = dict(generator=gen, device="cuda")
+    if mode == "zeros":
+        if zero is not None:
+            return torch.full(shape, zero, device="cuda")
+        v = torch.where(torch.rand(shape, **kw) < 0.5, -0.0, 0.0)
+        if neg_rows:
+            v[::4] = -0.0
+        return v
+    pal = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0, 1.0, -1.0],
+                       device="cuda")
+    pick = pal[torch.randint(0, len(pal), shape, **kw)]
+    u = torch.rand(shape, **kw) * 4 - 2
+    return torch.where(torch.rand(shape, **kw) < 0.25, pick, u).contiguous()
+
+
+def phase_sweep():
+    """Each kernel path against its plain version on synthetic tiles: every
+    semiring, (N,) and (N, 4) frontiers, 1 %, 50 %, 100 % occupancy and
+    all-padding blocks between occupied ones, signed zeros and ±inf ties.
+    Bit-identical, NaN by position only (``_same_nan``)."""
+    import torch
+    from repro_torch.kernels.common import MONOTONE_SEMIRINGS, SEMIRINGS
+    from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
+    from repro_torch.kernels.min_step import (fused_min_step,
+                                              fused_min_step_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t = time.perf_counter()
+    n_cases, bad = 0, []
+    # the zero that keeps a ⊗-product's sign that of the tile value
+    keep_sign = {"add_mul": 0.0, "min_mul": 0.0, "max_min": 0.0,
+                 "min_add": -0.0, "max_add": -0.0}
+    for (k, rows), fill, mode, lanes in (
+            (kr, f, m, L) for kr in SWEEP_SPMV for f in SWEEP_FILLS
+            for m in ("zeros", "infs") for L in (0, 4)):
+        idx, msk = _sweep_tile(gen, rows, k, fill, SWEEP_N)
+        xshape = (SWEEP_N, lanes) if lanes else (SWEEP_N,)
+        val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
+        for sr in SEMIRINGS:
+            x = _sweep_values(gen, xshape, mode, keep_sign[sr])
+            got = ell_spmv(idx, val, msk, x, semiring=sr)
+            want = ell_spmv_ref(idx, val, msk, x, semiring=sr)
+            n_cases += 1
+            if not _same_nan(got, want):
+                bad.append(f"ell_spmv K={k} {fill} {mode} L={lanes} {sr}")
+    for (k, rows), fill, mode, lanes in (
+            (kr, f, m, L) for kr in SWEEP_MIN_STEP for f in SWEEP_FILLS
+            for m in ("zeros", "infs") for L in (0, 4)):
+        idx, msk = _sweep_tile(gen, rows, k, fill, rows)
+        xshape = (rows, lanes) if lanes else (rows,)
+        val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
+        for sr in sorted(MONOTONE_SEMIRINGS):
+            x = _sweep_values(gen, xshape, mode, keep_sign[sr])
+            xrow = _sweep_values(gen, xshape, mode)
+            extra = _sweep_values(gen, xshape, mode)
+            send = torch.rand(xshape, generator=gen, device="cuda") < 0.7
+            got = fused_min_step(idx, val, msk, x, send, xrow, extra,
+                                 semiring=sr)
+            want = fused_min_step_ref(idx, val, msk, x, send, xrow, extra,
+                                      semiring=sr)
+            n_cases += 1
+            if not _same_nan(got, want):
+                bad.append(f"min_step K={k} {fill} {mode} L={lanes} {sr}")
+    sync()
+    say("sweep", cases=n_cases, failed=len(bad),
+        seconds=f"{time.perf_counter() - t:.1f}")
+    if bad:
+        raise AssertionError(f"kernel != plain version in {len(bad)} sweep "
+                             f"cases, first: {bad[:8]}")
+    return n_cases
+
+
 def _bound_ms(msk, idx, rows_bytes, ops_per_slot, flag=None,
               x_is_row=False):
     """Least time for the work these inputs need, over the HBM rate: each
@@ -356,10 +528,12 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
         err = _max_abs_err(got, want)
         row = dict(name=name, shape=label, bit_identical=same,
                    max_abs_err=err)
-        row["ms"] = time_ms(fn, reps)
+        row["ms"], row["timing"] = device_ms(fn, reps)
+        row["launch_path_ms"] = time_ms(fn, reps)
         row["plain_ms"] = time_ms(ref, plain_reps, windows=3)
         row["bound_ms"], row["bound_by"], row["bytes"], row["nnz"] = bound
-        row["library_ms"] = time_ms(library, reps) if library else None
+        row["library_ms"], row["library_timing"] = \
+            device_ms(library, reps) if library else (None, None)
         say("kernels", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                           for k, v in row.items()})
         report.append(row)
@@ -532,6 +706,7 @@ def main() -> int:
     from repro_torch import SSSP, IncrementalPageRank
 
     build_s = phase_build()
+    sweep_cases = phase_sweep()
     sssp_graph, sssp_data, sssp_build_s = grid_sssp_graph()
     pr_graph, pr_data, pr_build_s = rmat_pagerank_graph()
 
@@ -567,7 +742,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"),
               "w") as f:
-        json.dump(dict(card=smi, build_s=build_s,
+        json.dump(dict(card=smi, build_s=build_s, sweep_cases=sweep_cases,
                        sssp=dict(host_build_s=sssp_build_s,
                                  oracle_max_rel_err=sssp_err, **sssp_run),
                        pagerank=dict(host_build_s=pr_build_s,

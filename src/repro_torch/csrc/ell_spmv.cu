@@ -6,85 +6,519 @@
 // kernel behind remote delivery, local delivery and every spill bin of the
 // fused local phases.  All five semirings, (N,) and (N, L) frontiers.
 //
-// Bound on the H100: bytes.  Each output element does K ⊕ and K ⊗ (a few
-// flops per 9 bytes of idx/val/msk), far below the card's ratio of ~20
-// float32 flops per byte, so the floor is streaming the idx/val/msk tiles
-// once (9 bytes a slot) plus gathering x[idx] through L2 (the frontier is
-// at most tens of MB and mostly L2-resident).
+// Bound on the H100: bytes.  A slot costs a ⊗ and a ⊕ against 9 bytes of
+// idx/val/mask, far below the card's ~20 float32 operations per byte, so
+// the floor is the mask streamed once, idx/val of the occupied slots, the
+// frontier values of their sources and the outputs.  On the hub bins the
+// mask alone is over 90 % of it: 15,992 × 29,168 mask bytes are 466 MB
+// (0.139 ms at 3.35 TB/s) for 1 % occupied slots.
 //
-// Design (simple, first port): one thread per (row, lane).  The thread
-// walks its row's slots in the reference's fold order — sequential inside
-// each bk = min(128, K) slot block, block partials folded left to right —
-// so the result is bit-identical to the Pallas kernel (and to the plain
-// PyTorch version), `add_mul` included.  Masked and pad slots contribute
-// the ⊕ identity rather than being skipped, as in the reference.  Loads of
-// a row's slots are strided across the warp (coalescing, warp-per-row and
-// cp.async/TMA staging are later work); L1 absorbs part of the waste for
-// the narrow bins of the main path.
-#include "semiring.cuh"
+// Fold order.  Every path folds in the reference's order: slots
+// sequentially inside each bk = min(128, K) block, block partials left to
+// right — never a tree, for any semiring.  `add_mul` is not associative,
+// and the order also fixes which NaN of several propagates.
+//
+// Two paths, chosen by K in the C entry, one launch either way:
+//
+// * Narrow bins (K < 128: the base bins, K = 8 and 16 on the main path).
+//   One thread per (row, lane); K is a template parameter (8, 16, else a
+//   loop over 4-slot chunks).  With one lane and aligned tiles, a warp's
+//   32 rows are one contiguous span of idx/val/mask: the warp loads its
+//   mask coalesced into shared memory, and idx/val too where at least half
+//   of their 32-byte sectors hold an occupied slot; otherwise each thread
+//   loads the 4-slot chunks of its row that hold one, by 16-byte vector
+//   loads (the sparse remote and PageRank base bins).  Then all gathers are issued, and the fold runs in
+//   registers (`ell_row.cuh`).  32-bit offsets when they fit; no division
+//   for a single lane.  Masked slots fold in as the ⊕ identity, exactly as
+//   the reference's chain does.
+//
+// * Wide bins (K ≥ 128: every spill bin).  The work is split by (row,
+//   128-slot fold block).  In a fold block a warp reads the 128 mask bytes
+//   coalesced (4 bytes a lane) and takes the occupancy with
+//   `__ballot_sync`.  An all-padding block's partial is the ⊕ identity and
+//   none of its idx, val or x is read.  In an occupied block the lanes load
+//   idx and val of their occupied slots (16 bytes a lane) and gather x, in
+//   parallel, and store the products, compacted in slot order, in shared
+//   memory; one lane then folds them in slot order.  Occupied slots need
+//   not be a prefix of the row.
+//   - K = 128: a warp per row, two consecutive rows at once where the bin
+//     has enough rows to fill the card that way (two lanes fold in
+//     parallel, twice the loads in flight).  The warps are persistent
+//     (as many blocks as the card holds) and walk their rows with the next
+//     group's mask words in flight while they fold the current one.
+//   - K > 128: a thread block per row.  Its threads first stream the row's
+//     mask, 16 bytes a thread and 8 loads in flight, into one occupancy
+//     bit per fold block; the warps then take the occupied blocks; one
+//     thread per output lane folds the block partials left to right, the
+//     identity partials of empty blocks included — a run of them as one ⊕
+//     identity, since x ⊕ e ⊕ e = x ⊕ e bit for bit.  On the hub bins
+//     (99 % padding) the kernel is then one pass over the mask at nearly
+//     the memory rate, plus the few occupied blocks.
+//
+// Why skipping padding is exact.  The reference folds every slot, a masked
+// or pad slot as the ⊕ identity e.  For min_add, max_add, min_mul and
+// max_min, e = ±inf is a two-sided identity of nan_min / nan_max bit for
+// bit (`nan_min(a, +inf)` is a, NaN included), so dropping it changes
+// nothing.  For add_mul e = +0.0 is not quite one: a + 0.0 is a for every a
+// except -0.0, which becomes +0.0, and a NaN stays a NaN.  Let S be the
+// reference's chain over all 128 slots and T the chain over the occupied
+// slots only.  Inductively S = T, or S = +0.0 while T = -0.0: adding an
+// occupied value keeps that (±0.0 + v agree unless v = -0.0, which keeps
+// +0.0 / -0.0), and adding +0.0 turns -0.0 into +0.0.  T ends at -0.0 only
+// if every occupied value is -0.0 (a sum of nonzero terms that cancels
+// rounds to +0.0), and then any skipped slot has set S to +0.0.  So a
+// block that skipped at least one slot (masked, padding, or past K in a
+// ragged last block) ends with part = part ⊕ e — for add_mul
+// `__fadd_rn(part, 0.0f)`, a no-op for the others — and equals the
+// reference's partial bit for bit (NaN payloads aside).  A block of no
+// occupied slot is e.  The chip-side sweep in `chip_smoke.py` (signed
+// zeros, ±inf ties, 1 %–100 % occupancy, empty blocks between occupied
+// ones) holds this against the plain version.
+#include <algorithm>
+
+#include "ell_row.cuh"
 
 namespace graphhp {
 
-template <int S>
-__global__ void ell_spmv_kernel(const int* __restrict__ idx,
-                                const float* __restrict__ val,
-                                const bool* __restrict__ msk,
-                                const float* __restrict__ x,
-                                float* __restrict__ y,
-                                long long rows, int k_slots, int lanes,
-                                int bk) {
-  using SR = Semiring<S>;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kWarps = 8;         // warps a block of the wide path, at most
+constexpr int kLaneChunk = 4;     // output lanes of an (N, L) frontier a block takes
+constexpr int kRound = 256;       // fold-block partials held in shared memory
+constexpr int kScan = 8;          // 16-byte mask loads a thread has in flight
+
+// ---------------------------------------------------------------- narrow --
+
+template <int S, typename I>
+struct SpmvSlots {
+  const float* x;
+  int lanes;
+  int l;
+
+  template <int C>
+  __device__ __forceinline__ void operator()(const Slots<C>& s, float (&o)[C]) const {
+    using SR = Semiring<S>;
+    float g[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      g[j] = s.m[j] ? __ldg(x + static_cast<I>(s.i[j]) * lanes + l) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) o[j] = s.m[j] ? SR::times(s.v[j], g[j]) : SR::ident();
+  }
+};
+
+template <int S, int KT, typename I>
+__global__ void ell_narrow_kernel(const int* __restrict__ idx,
+                                  const float* __restrict__ val,
+                                  const unsigned char* __restrict__ msk,
+                                  const float* __restrict__ x,
+                                  float* __restrict__ y, I rows, int k_slots,
+                                  int lanes) {
+  const I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= rows * lanes) return;
-  const long long r = t / lanes;
-  const int l = static_cast<int>(t - r * lanes);
-  const int* ri = idx + r * k_slots;
-  const float* rv = val + r * k_slots;
-  const bool* rm = msk + r * k_slots;
+  I r = t;
+  int l = 0;
+  if (lanes != 1) {
+    r = t / lanes;
+    l = static_cast<int>(t - r * lanes);
+  }
+  const I base = r * k_slots;
+  y[t] = fold_row<S, KT>(idx + base, val + base, msk + base, k_slots,
+                         SpmvSlots<S, I>{x, lanes, l});
+}
+
+// lanes == 1, K = 8 or 16, aligned tiles: each warp's rows staged (ell_row.cuh).
+template <int S, int KT>
+__global__ void ell_narrow_staged_kernel(const int* __restrict__ idx,
+                                         const float* __restrict__ val,
+                                         const unsigned char* __restrict__ msk,
+                                         const float* __restrict__ x,
+                                         float* __restrict__ y, int rows) {
+  __shared__ StagedRows<KT> staged[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kThreads + (threadIdx.x & ~31);
+  const int nrow = min(32, rows - r0);
+  if (nrow <= 0) return;                                 // warp-uniform
+  StagedRows<KT>& st = staged[threadIdx.x >> 5];
+  const bool dense = st.template load<kStageAdaptive>(idx, val, msk, r0, nrow, lane);
+  if (lane >= nrow) return;
+  const int at = (r0 + lane) * KT;
+  y[r0 + lane] = fold_staged_row<S, KT>(st, lane, dense, true, idx + at,
+                                        val + at, SpmvSlots<S, int>{x, 1, 0});
+}
+
+// ------------------------------------------------------------------ wide --
+
+// Mask bytes of slots s .. s+3 as one word (zero past K).
+__device__ __forceinline__ unsigned mask_word(const unsigned char* rm,
+                                              int k_slots, int s) {
+  if (s + 4 <= k_slots && aligned(rm + s, 4))
+    return __ldcs(reinterpret_cast<const unsigned*>(rm + s));
+  unsigned w = 0;
+  for (int j = 0; j < 4; ++j)
+    if (s + j < k_slots && rm[s + j]) w |= 1u << (8 * j);
+  return w;
+}
+
+// Bit j set when slot j of a mask word is occupied.
+__device__ __forceinline__ unsigned nibble(unsigned w) {
+  unsigned occ = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) occ |= (((w >> (8 * j)) & 0xffu) != 0 ? 1u : 0u) << j;
+  return occ;
+}
+
+// One warp folds RW consecutive 128-slot fold blocks at once: block j
+// starts at slot j*128 of ri / rv and holds min(128, lim - j*128) real
+// slots; this lane's mask word of block j is w[j] (its slots 4*lane ..
+// 4*lane+3).  `stage` holds RW * 128 * lc floats of this warp.  Output lanes
+// l0 .. l0+lc-1: lane j*lc + c returns block j's partial for output lane
+// l0 + c and sets *n to the block's occupied slots.
+template <int S, int RW>
+__device__ __forceinline__ float warp_blocks(const int* ri, const float* rv,
+                                             int lim, const unsigned (&w)[RW],
+                                             const float* x, int lanes,
+                                             int l0, int lc, float* stage,
+                                             int lane, int* n) {
+  using SR = Semiring<S>;
+  const unsigned lt = (1u << lane) - 1u;
+  unsigned occ[RW];
+  int n_occ[RW], rank[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    occ[j] = nibble(w[j]);
+    const unsigned q0 = __ballot_sync(kFullWarp, occ[j] & 1u);
+    const unsigned q1 = __ballot_sync(kFullWarp, occ[j] & 2u);
+    const unsigned q2 = __ballot_sync(kFullWarp, occ[j] & 4u);
+    const unsigned q3 = __ballot_sync(kFullWarp, occ[j] & 8u);
+    n_occ[j] = __popc(q0) + __popc(q1) + __popc(q2) + __popc(q3);
+    rank[j] = __popc(q0 & lt) + __popc(q1 & lt) + __popc(q2 & lt) + __popc(q3 & lt);
+  }
+  // idx and val of this lane's occupied slots, every block at once
+  int i[RW][4];
+  float v[RW][4];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int s = j * kFold + 4 * lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) { i[j][q] = 0; v[j][q] = 0.0f; }
+    if (!occ[j]) continue;
+    if (s + 4 <= lim && aligned(ri + s, 16) && aligned(rv + s, 16)) {
+      const int4 a = __ldcs(reinterpret_cast<const int4*>(ri + s));
+      const float4 c = __ldcs(reinterpret_cast<const float4*>(rv + s));
+      i[j][0] = a.x; i[j][1] = a.y; i[j][2] = a.z; i[j][3] = a.w;
+      v[j][0] = c.x; v[j][1] = c.y; v[j][2] = c.z; v[j][3] = c.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (occ[j] & (1u << q)) {
+          i[j][q] = __ldcs(ri + s + q);
+          v[j][q] = __ldcs(rv + s + q);
+        }
+    }
+  }
+  // gathers, then the products, compacted in slot order
+  for (int c = 0; c < lc; ++c) {
+    float g[RW][4];
+#pragma unroll
+    for (int j = 0; j < RW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        g[j][q] = (occ[j] & (1u << q))
+                      ? __ldg(x + static_cast<long long>(i[j][q]) * lanes + l0 + c)
+                      : 0.0f;
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      int p = j * kFold + rank[j];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (occ[j] & (1u << q)) stage[(p++) * lc + c] = SR::times(v[j][q], g[j][q]);
+    }
+  }
+  __syncwarp();
+  float part = SR::ident();
+  const int jb = lane / lc, c = lane - jb * lc;
+  int nj = 0;
+#pragma unroll
+  for (int j = 0; j < RW; ++j) nj = (jb == j) ? n_occ[j] : nj;
+  if (jb < RW && nj > 0) {
+    // one lane folds the block's products in slot order, eight loads ahead
+    const float* st = stage + jb * kFold * lc + c;
+    part = st[0];
+    int p = 1;
+    for (; p + 8 <= nj; p += 8) {
+      float t[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) t[q] = st[(p + q) * lc];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) part = SR::combine(part, t[q]);
+    }
+    for (; p < nj; ++p) part = SR::combine(part, st[p * lc]);
+    // skipped slots: one ⊕ identity stands for all of them (header)
+    if (nj < kFold) part = SR::combine(part, SR::ident());
+  }
+  __syncwarp();
+  *n = nj;
+  return part;
+}
+
+// K = 128: a warp per row, RW consecutive rows at once (one fold block
+// each, which is the row's result).  Persistent warps: each walks groups
+// of RW rows a grid apart, the next group's mask words in flight while it
+// folds this one.
+template <int RW>
+__device__ __forceinline__ void warp_rows_masks(const unsigned char* msk,
+                                                long long rows, long long r0,
+                                                int lane, unsigned (&w)[RW]) {
+#pragma unroll
+  for (int j = 0; j < RW; ++j)
+    w[j] = r0 + j < rows ? mask_word(msk + (r0 + j) * kFold, kFold, 4 * lane) : 0u;
+}
+
+template <int S, int RW>
+__global__ void __launch_bounds__(kWarps * 32)
+ell_warp_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                     const unsigned char* __restrict__ msk,
+                     const float* __restrict__ x, float* __restrict__ y,
+                     long long rows, int lanes, int lcap) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps * RW;
+  long long r0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) * RW;
+  if (r0 >= rows) return;                                // warp-uniform
+  const int l0 = blockIdx.y * lcap;
+  const int lc = min(lcap, lanes - l0);
+  const int jb = lane / lc, c = lane - jb * lc;
+  unsigned w_next[RW];
+  warp_rows_masks<RW>(msk, rows, r0, lane, w_next);
+  for (; r0 < rows; r0 += stride) {
+    unsigned w[RW];
+#pragma unroll
+    for (int j = 0; j < RW; ++j) w[j] = w_next[j];
+    if (r0 + stride < rows) warp_rows_masks<RW>(msk, rows, r0 + stride, lane, w_next);
+    const long long base = r0 * kFold;
+    const int nrow = static_cast<int>(min(static_cast<long long>(RW), rows - r0));
+    int n;
+    const float part = warp_blocks<S, RW>(idx + base, val + base, nrow * kFold, w,
+                                          x, lanes, l0, lc,
+                                          smem + warp * RW * kFold * lcap, lane, &n);
+    if (jb < nrow) y[(r0 + jb) * lanes + l0 + c] = part;
+  }
+}
+
+// K > 128: a block per row, in rounds of up to kRound fold blocks.
+// 1. Scan: the block streams the round's mask, 16 bytes a thread per load
+//    and kScan loads in flight, into one occupancy bit per fold block.
+// 2. The warps take the occupied blocks (warp_blocks, one at a time) and
+//    leave their partials in shared memory; nothing else of an
+//    all-padding block is read.
+// 3. One thread per output lane folds the partials left to right; a run
+//    of all-padding blocks is one ⊕ identity (x ⊕ e ⊕ e = x ⊕ e).
+template <int S>
+__global__ void __launch_bounds__(kWarps * 32)
+ell_block_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                      const unsigned char* __restrict__ msk,
+                      const float* __restrict__ x, float* __restrict__ y,
+                      int k_slots, int lanes, int lcap) {
+  using SR = Semiring<S>;
+  extern __shared__ float smem[];
+  __shared__ unsigned busy[kRound / 32];
+  __shared__ short list[kRound];
+  __shared__ int n_busy;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const long long r = blockIdx.x;
+  const int l0 = blockIdx.y * lcap;
+  const int lc = min(lcap, lanes - l0);
+  float* parts = smem + nw * kFold * lcap;               // kRound * lcap
+  const long long base = r * k_slots;
+  const int* ri = idx + base;
+  const float* rv = val + base;
+  const unsigned char* rm = msk + base;
+  const int nb = (k_slots + kFold - 1) / kFold;
 
   float acc = SR::ident();
-  for (int k0 = 0; k0 < k_slots; k0 += bk) {
-    float part = SR::ident();
-    for (int j = 0; j < bk; ++j) {
-      const int k = k0 + j;
-      float v = SR::ident();
-      if (k < k_slots && rm[k]) {
-        v = SR::times(rv[k], __ldg(x + static_cast<long long>(ri[k]) * lanes + l));
+  for (int c0 = 0; c0 < nb; c0 += kRound) {
+    const int cn = min(kRound, nb - c0);
+    for (int t = threadIdx.x; t < kRound / 32; t += blockDim.x) busy[t] = 0;
+    __syncthreads();
+    // 1. occupancy bits of the round's fold blocks
+    const unsigned char* p = rm + c0 * kFold;
+    const int len = min(cn * kFold, k_slots - c0 * kFold);
+    int done = 0;
+    if (aligned(p, 16)) {
+      const int n16 = len / 16;                          // 8 per fold block
+      for (int q0 = warp * 32; q0 < n16; q0 += 32 * nw * kScan) {
+        uint4 m[kScan];
+#pragma unroll
+        for (int u = 0; u < kScan; ++u) {
+          const int q = q0 + u * 32 * nw + lane;
+          m[u] = q < n16 ? __ldcs(reinterpret_cast<const uint4*>(p) + q)
+                         : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < kScan; ++u) {
+          const unsigned nz = __ballot_sync(
+              kFullWarp, (m[u].x | m[u].y | m[u].z | m[u].w) != 0u);
+          const int b = (q0 + u * 32 * nw) / 8;            // lane 0's block
+          if (lane == 0 && nz) {
+            unsigned bits = 0;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) bits |= ((nz >> (8 * g)) & 0xffu ? 1u : 0u) << g;
+            atomicOr(&busy[b >> 5], bits << (b & 31));
+          }
+        }
       }
-      part = (j == 0) ? v : SR::combine(part, v);
+      done = n16 * 16;
     }
-    acc = (k0 == 0) ? part : SR::combine(acc, part);
+    for (int t = done + threadIdx.x; t < len; t += blockDim.x)
+      if (p[t]) atomicOr(&busy[(t / kFold) >> 5], 1u << ((t / kFold) & 31));
+    __syncthreads();
+    // the occupied blocks, in order
+    if (threadIdx.x == 0) {
+      int k = 0;
+      for (int wd = 0; wd < kRound / 32; ++wd)
+        for (unsigned bits = busy[wd]; bits; bits &= bits - 1)
+          list[k++] = static_cast<short>(wd * 32 + __ffs(bits) - 1);
+      n_busy = k;
+    }
+    __syncthreads();
+    // 2. the occupied blocks, a warp each
+    for (int e = warp; e < n_busy; e += nw) {
+      const int b = c0 + list[e];
+      const unsigned w[1] = {mask_word(rm, k_slots, b * kFold + 4 * lane)};
+      int n;
+      const float part = warp_blocks<S, 1>(ri + b * kFold, rv + b * kFold,
+                                           k_slots - b * kFold, w, x, lanes,
+                                           l0, lc, smem + warp * kFold * lcap, lane, &n);
+      if (lane < lc) parts[list[e] * lc + lane] = part;
+    }
+    __syncthreads();
+    // 3. partials left to right
+    if (threadIdx.x < lc) {
+      int j = 0;
+      while (j < cn) {
+        const unsigned word = busy[j >> 5] >> (j & 31);
+        if (word & 1u) {
+          const float pj = parts[j * lc + threadIdx.x];
+          acc = (c0 + j == 0) ? pj : SR::combine(acc, pj);
+          ++j;
+        } else {                                         // a run of empties
+          acc = (c0 + j == 0) ? SR::ident() : SR::combine(acc, SR::ident());
+          j += word ? __ffs(word) - 1 : 32 - (j & 31);
+        }
+      }
+    }
+    __syncthreads();
   }
-  y[t] = acc;
+  if (threadIdx.x < lc) y[r * lanes + l0 + threadIdx.x] = acc;
+}
+
+// ---------------------------------------------------------------- launch --
+
+template <int S, int KT, typename I>
+void launch_narrow(const int* idx, const float* val, const unsigned char* msk,
+                   const float* x, float* y, long long rows, int k_slots,
+                   int lanes, cudaStream_t stream) {
+  if constexpr (KT > 0 && sizeof(I) == 4) {
+    if (can_stage<KT>(idx, val, msk, lanes)) {
+      ell_narrow_staged_kernel<S, KT><<<grid_for(rows), kThreads, 0, stream>>>(
+          idx, val, msk, x, y, static_cast<int>(rows));
+      return;
+    }
+  }
+  ell_narrow_kernel<S, KT, I><<<grid_for(rows * lanes), kThreads, 0, stream>>>(
+      idx, val, msk, x, y, static_cast<I>(rows), k_slots, lanes);
+}
+
+template <int S, typename I>
+void launch_narrow_k(const int* idx, const float* val, const unsigned char* msk,
+                     const float* x, float* y, long long rows, int k_slots,
+                     int lanes, cudaStream_t stream) {
+  switch (k_slots) {
+    case 8: launch_narrow<S, 8, I>(idx, val, msk, x, y, rows, k_slots, lanes, stream); break;
+    case 16: launch_narrow<S, 16, I>(idx, val, msk, x, y, rows, k_slots, lanes, stream); break;
+    default: launch_narrow<S, 0, I>(idx, val, msk, x, y, rows, k_slots, lanes, stream); break;
+  }
+}
+
+// Two rows a warp halve the warps: worth it only on bins of at least four
+// rows per warp the card holds (132 SMs × 64 warps), which then still fill
+// it twice over.
+constexpr long long kManyRows = 4LL * 132 * 64;
+
+template <int S, int RW>
+void launch_warp_rows(const int* idx, const float* val, const unsigned char* msk,
+                      const float* x, float* y, long long rows, int lanes,
+                      int lcap, cudaStream_t stream) {
+  // persistent: as many blocks as the card holds at once, or fewer
+  const size_t smem = sizeof(float) * kWarps * RW * kFold * lcap;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, ell_warp_rows_kernel<S, RW>, kWarps * 32, smem);
+  const long long warps = (rows + RW - 1) / RW;
+  const long long blocks = std::min<long long>((warps + kWarps - 1) / kWarps,
+                                               std::max(1, sms * per_sm));
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>((lanes + lcap - 1) / lcap));
+  ell_warp_rows_kernel<S, RW><<<grid, kWarps * 32, smem, stream>>>(
+      idx, val, msk, x, y, rows, lanes, lcap);
 }
 
 template <int S>
-void launch(const void* idx, const void* val, const void* msk, const void* x,
-            void* y, long long rows, int k_slots, int lanes, int bk,
-            cudaStream_t stream) {
-  ell_spmv_kernel<S><<<grid_for(rows * lanes), kThreads, 0, stream>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(val),
-      static_cast<const bool*>(msk), static_cast<const float*>(x),
-      static_cast<float*>(y), rows, k_slots, lanes, bk);
+void launch(const void* idx_, const void* val_, const void* msk_,
+            const void* x_, void* y_, long long rows, long long n_src,
+            int k_slots, int lanes, cudaStream_t stream) {
+  const int* idx = static_cast<const int*>(idx_);
+  const float* val = static_cast<const float*>(val_);
+  const unsigned char* msk = static_cast<const unsigned char*>(msk_);
+  const float* x = static_cast<const float*>(x_);
+  float* y = static_cast<float*>(y_);
+  if (k_slots < kFold) {
+    if (fits_int32(rows, k_slots, lanes, n_src))
+      launch_narrow_k<S, int>(idx, val, msk, x, y, rows, k_slots, lanes, stream);
+    else
+      launch_narrow_k<S, long long>(idx, val, msk, x, y, rows, k_slots, lanes, stream);
+    return;
+  }
+  const int lcap = std::min(lanes, kLaneChunk);
+  if (k_slots == kFold) {
+    if (lanes == 1 && rows >= kManyRows)
+      launch_warp_rows<S, 2>(idx, val, msk, x, y, rows, 1, 1, stream);
+    else
+      launch_warp_rows<S, 1>(idx, val, msk, x, y, rows, lanes, lcap, stream);
+    return;
+  }
+  const int nb = (k_slots + kFold - 1) / kFold;
+  const int nw = std::max(1, std::min(kWarps, (nb + 7) / 8));
+  const dim3 grid(static_cast<unsigned>(rows),
+                  static_cast<unsigned>((lanes + lcap - 1) / lcap));
+  const size_t smem = sizeof(float) * (nw * kFold + kRound) * lcap;
+  ell_block_rows_kernel<S><<<grid, nw * 32, smem, stream>>>(
+      idx, val, msk, x, y, k_slots, lanes, lcap);
 }
 
 }  // namespace graphhp
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// an unknown semiring).  `lanes` is 1 for an (N,) frontier.
+// an unknown semiring or a fold block other than min(128, K)).  `lanes` is
+// 1 for an (N,) frontier; `n_src` is the frontier's N.
 extern "C" int graphhp_ell_spmv(int semiring, const void* idx,
                                 const void* val, const void* msk,
                                 const void* x, void* y, long long rows,
-                                int k_slots, int lanes, int bk,
-                                void* stream) {
+                                long long n_src, int k_slots, int lanes,
+                                int bk, void* stream) {
   using namespace graphhp;
+  if (bk != std::min(kFold, k_slots) || lanes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (semiring) {
-    case kAddMul: launch<kAddMul>(idx, val, msk, x, y, rows, k_slots, lanes, bk, s); break;
-    case kMinAdd: launch<kMinAdd>(idx, val, msk, x, y, rows, k_slots, lanes, bk, s); break;
-    case kMaxAdd: launch<kMaxAdd>(idx, val, msk, x, y, rows, k_slots, lanes, bk, s); break;
-    case kMinMul: launch<kMinMul>(idx, val, msk, x, y, rows, k_slots, lanes, bk, s); break;
-    case kMaxMin: launch<kMaxMin>(idx, val, msk, x, y, rows, k_slots, lanes, bk, s); break;
+    case kAddMul: launch<kAddMul>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
+    case kMinAdd: launch<kMinAdd>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
+    case kMaxAdd: launch<kMaxAdd>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
+    case kMinMul: launch<kMinMul>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
+    case kMaxMin: launch<kMaxMin>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -9,57 +9,97 @@
 // the SSSP local phase of the hybrid engine (and WCC / widest path / random
 // walk off the main path).  The four monotone semirings, (N,) and (N, L).
 //
-// Bound on the H100: bytes — the idx/val/msk tiles streamed once (9 bytes a
-// slot), gathers of x and send through L2, and 9 bytes of row operands and
+// Bound on the H100: bytes — the mask streamed once, idx/val of the
+// occupied slots, a send flag per distinct source (and its x where the flag
+// is set, unless x is the row operand), and 17 bytes of row operands and
 // outputs per (row, lane).  The arithmetic is one ⊗ and one ⊕ per slot.
+// On the SSSP grid (4,194,304 × 8, half the slots occupied) that is 243 MB,
+// 0.0725 ms at 3.35 TB/s; the idx/val rows are 32-byte sectors, so a
+// kernel moves every slot's words, about 1.4 × the bound's bytes.
 //
-// Design (simple, first port): one thread per (row, lane), the slot fold in
-// the reference's order (sequential inside each bk = min(128, K) block,
-// block partials left to right), then the epilogue in registers: the four
-// HBM round trips of the unfused gather -> segment-⊕ -> ⊕ -> compare chain
-// become one pass.  The send flag is read only for occupied slots.
-#include "semiring.cuh"
+// Design: one thread per (row, lane), K a template parameter (8 and 16
+// unrolled, any other K in 4-slot chunks; `ell_row.cuh`).  The row's mask
+// (8 bytes at K = 8) and idx come first, all in flight together: on the
+// main path (one lane, aligned tiles) a warp loads its 32 rows of both
+// coalesced into shared memory, 16 bytes a lane, and each thread takes its
+// row from there (per-thread row loads would stride the warp by 32 bytes a
+// load).  Then every `send` gather of an occupied slot; then, where a flag
+// is set, the x gather and the slot's val (16 bytes per 4-slot chunk that
+// holds a set flag): late in an SSSP run few flags are set, and most val
+// words are never read.  Then the fold in registers in the reference's
+// order (sequential inside each bk = min(128, K) block, block partials left
+// to right), and the epilogue: the four HBM round trips of the unfused
+// gather -> segment-⊕ -> ⊕ -> compare chain become one pass.  32-bit
+// offsets when they fit, and no division for a single lane.  Every slot
+// folds in (the ⊕ identity where it contributes nothing), so the chain is
+// the reference's own.
+#include "ell_row.cuh"
 
 namespace graphhp {
 
-template <int S>
+template <int S, typename I>
+struct MinStepSlots {
+  const float* x;
+  const unsigned char* send;
+  int lanes;
+  int l;
+
+  template <int C>
+  __device__ __forceinline__ void operator()(const Slots<C>& s, float (&o)[C]) const {
+    using SR = Semiring<S>;
+    I at[C];
+    bool f[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      at[j] = static_cast<I>(s.i[j]) * lanes + l;
+      f[j] = s.m[j] && __ldg(send + at[j]) != 0;
+    }
+    // val where not loaded yet: the 4-slot chunks with a flag set only
+    float v[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = s.v[j];
+    if constexpr (C % 4 == 0) {
+      if (s.v_later) {
+#pragma unroll
+        for (int q = 0; q < C / 4; ++q)
+          if (f[4 * q] | f[4 * q + 1] | f[4 * q + 2] | f[4 * q + 3]) {
+            const float4 b = __ldg(reinterpret_cast<const float4*>(s.v_later) + q);
+            v[4 * q] = b.x; v[4 * q + 1] = b.y; v[4 * q + 2] = b.z; v[4 * q + 3] = b.w;
+          }
+      }
+    }
+    float g[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) g[j] = f[j] ? __ldg(x + at[j]) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) o[j] = f[j] ? SR::times(g[j], v[j]) : SR::ident();
+  }
+};
+
+template <int S, int KT, typename I>
 __global__ void min_step_kernel(const int* __restrict__ idx,
                                 const float* __restrict__ val,
-                                const bool* __restrict__ msk,
+                                const unsigned char* __restrict__ msk,
                                 const float* __restrict__ x,
-                                const bool* __restrict__ send,
+                                const unsigned char* __restrict__ send,
                                 const float* __restrict__ xrow,
                                 const float* __restrict__ extra,
                                 float* __restrict__ x_out,
                                 float* __restrict__ d_out,
                                 bool* __restrict__ send_out,
-                                long long rows, int k_slots, int lanes,
-                                int bk) {
+                                I rows, int k_slots, int lanes) {
   using SR = Semiring<S>;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= rows * lanes) return;
-  const long long r = t / lanes;
-  const int l = static_cast<int>(t - r * lanes);
-  const int* ri = idx + r * k_slots;
-  const float* rv = val + r * k_slots;
-  const bool* rm = msk + r * k_slots;
-
-  float acc = SR::ident();
-  for (int k0 = 0; k0 < k_slots; k0 += bk) {
-    float part = SR::ident();
-    for (int j = 0; j < bk; ++j) {
-      const int k = k0 + j;
-      float v = SR::ident();
-      if (k < k_slots && rm[k]) {
-        const long long s = static_cast<long long>(ri[k]) * lanes + l;
-        if (__ldg(reinterpret_cast<const unsigned char*>(send) + s)) {
-          v = SR::times(__ldg(x + s), rv[k]);
-        }
-      }
-      part = (j == 0) ? v : SR::combine(part, v);
-    }
-    acc = (k0 == 0) ? part : SR::combine(acc, part);
+  I r = t;
+  int l = 0;
+  if (lanes != 1) {
+    r = t / lanes;
+    l = static_cast<int>(t - r * lanes);
   }
+  const I base = r * k_slots;
+  const float acc = fold_row<S, KT>(idx + base, val + base, msk + base, k_slots,
+                                    MinStepSlots<S, I>{x, send, lanes, l});
   const float d = SR::combine(acc, extra[t]);
   const float xr = xrow[t];
   x_out[t] = SR::combine(xr, d);
@@ -67,45 +107,121 @@ __global__ void min_step_kernel(const int* __restrict__ idx,
   send_out[t] = SR::improves(d, xr);
 }
 
+// lanes == 1, K = 8 or 16, aligned tiles: each warp's rows staged (ell_row.cuh).
+template <int S, int KT>
+__global__ void min_step_staged_kernel(const int* __restrict__ idx,
+                                       const float* __restrict__ val,
+                                       const unsigned char* __restrict__ msk,
+                                       const float* __restrict__ x,
+                                       const unsigned char* __restrict__ send,
+                                       const float* __restrict__ xrow,
+                                       const float* __restrict__ extra,
+                                       float* __restrict__ x_out,
+                                       float* __restrict__ d_out,
+                                       bool* __restrict__ send_out, int rows) {
+  using SR = Semiring<S>;
+  __shared__ StagedRows<KT> staged[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kThreads + (threadIdx.x & ~31);
+  const int nrow = min(32, rows - r0);
+  if (nrow <= 0) return;                                 // warp-uniform
+  StagedRows<KT>& st = staged[threadIdx.x >> 5];
+  st.template load<kStageMaskIdx>(idx, val, msk, r0, nrow, lane);
+  if (lane >= nrow) return;
+  const int t = r0 + lane;
+  const float acc = fold_staged_row<S, KT>(st, lane, true, false, idx + t * KT,
+                                           val + t * KT,
+                                           MinStepSlots<S, int>{x, send, 1, 0});
+  const float d = SR::combine(acc, extra[t]);
+  const float xr = xrow[t];
+  x_out[t] = SR::combine(xr, d);
+  d_out[t] = d;
+  send_out[t] = SR::improves(d, xr);
+}
+
+template <int S, int KT, typename I>
+void launch_k(const void* idx, const void* val, const void* msk, const void* x,
+              const void* send, const void* xrow, const void* extra,
+              void* x_out, void* d_out, void* send_out, long long rows,
+              int k_slots, int lanes, cudaStream_t stream) {
+  if constexpr (KT > 0 && sizeof(I) == 4) {
+    if (can_stage<KT>(idx, val, msk, lanes)) {
+      min_step_staged_kernel<S, KT><<<grid_for(rows), kThreads, 0, stream>>>(
+          static_cast<const int*>(idx), static_cast<const float*>(val),
+          static_cast<const unsigned char*>(msk), static_cast<const float*>(x),
+          static_cast<const unsigned char*>(send), static_cast<const float*>(xrow),
+          static_cast<const float*>(extra), static_cast<float*>(x_out),
+          static_cast<float*>(d_out), static_cast<bool*>(send_out),
+          static_cast<int>(rows));
+      return;
+    }
+  }
+  min_step_kernel<S, KT, I><<<grid_for(rows * lanes), kThreads, 0, stream>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(val),
+      static_cast<const unsigned char*>(msk), static_cast<const float*>(x),
+      static_cast<const unsigned char*>(send), static_cast<const float*>(xrow),
+      static_cast<const float*>(extra), static_cast<float*>(x_out),
+      static_cast<float*>(d_out), static_cast<bool*>(send_out),
+      static_cast<I>(rows), k_slots, lanes);
+}
+
+template <int S, typename I>
+void launch_i(const void* idx, const void* val, const void* msk, const void* x,
+              const void* send, const void* xrow, const void* extra,
+              void* x_out, void* d_out, void* send_out, long long rows,
+              int k_slots, int lanes, cudaStream_t stream) {
+  switch (k_slots) {
+    case 8:
+      launch_k<S, 8, I>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, stream);
+      break;
+    case 16:
+      launch_k<S, 16, I>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, stream);
+      break;
+    default:
+      launch_k<S, 0, I>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, stream);
+      break;
+  }
+}
+
 template <int S>
 void launch(const void* idx, const void* val, const void* msk, const void* x,
             const void* send, const void* xrow, const void* extra,
             void* x_out, void* d_out, void* send_out, long long rows,
-            int k_slots, int lanes, int bk, cudaStream_t stream) {
-  min_step_kernel<S><<<grid_for(rows * lanes), kThreads, 0, stream>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(val),
-      static_cast<const bool*>(msk), static_cast<const float*>(x),
-      static_cast<const bool*>(send), static_cast<const float*>(xrow),
-      static_cast<const float*>(extra), static_cast<float*>(x_out),
-      static_cast<float*>(d_out), static_cast<bool*>(send_out), rows,
-      k_slots, lanes, bk);
+            long long n_src, int k_slots, int lanes, cudaStream_t stream) {
+  if (fits_int32(rows, k_slots, lanes, n_src))
+    launch_i<S, int>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, stream);
+  else
+    launch_i<S, long long>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, stream);
 }
 
 }  // namespace graphhp
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// semiring that is not monotone).  `lanes` is 1 for an (N,) frontier.
+// semiring that is not monotone or a fold block other than min(128, K)).
+// `lanes` is 1 for an (N,) frontier; `n_src` is the frontier's N.
 extern "C" int graphhp_min_step(int semiring, const void* idx,
                                 const void* val, const void* msk,
                                 const void* x, const void* send,
                                 const void* xrow, const void* extra,
                                 void* x_out, void* d_out, void* send_out,
-                                long long rows, int k_slots, int lanes,
-                                int bk, void* stream) {
+                                long long rows, long long n_src, int k_slots,
+                                int lanes, int bk, void* stream) {
   using namespace graphhp;
+  if (bk != (k_slots < kFold ? k_slots : kFold) || lanes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (semiring) {
     case kMinAdd:
-      launch<kMinAdd>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, bk, s);
+      launch<kMinAdd>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, n_src, k_slots, lanes, s);
       break;
     case kMaxAdd:
-      launch<kMaxAdd>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, bk, s);
+      launch<kMaxAdd>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, n_src, k_slots, lanes, s);
       break;
     case kMinMul:
-      launch<kMinMul>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, bk, s);
+      launch<kMinMul>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, n_src, k_slots, lanes, s);
       break;
     case kMaxMin:
-      launch<kMaxMin>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, k_slots, lanes, bk, s);
+      launch<kMaxMin>(idx, val, msk, x, send, xrow, extra, x_out, d_out, send_out, rows, n_src, k_slots, lanes, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -4,8 +4,12 @@
 // goes through an explicitly rounded intrinsic (__fadd_rn / __fmul_rn),
 // which nvcc never contracts into an FMA, so `partial ⊕ (a ⊗ b)` rounds
 // twice exactly like the reference's separate jnp ops and like the plain
-// PyTorch versions.  min/max propagate NaN like torch.minimum/maximum and
-// jnp.minimum/maximum, and pick the first operand on ties.
+// PyTorch versions.  min/max follow jnp.minimum/maximum (IEEE 754-2019
+// minimum/maximum), as the plain versions' `kernels.common.minimum` /
+// `maximum` do: NaN propagates, and -0.0 orders below +0.0, so a tie of
+// signed zeros gives -0.0 under min and +0.0 under max whichever operand
+// comes first.  Both are then associative and commutative up to the NaN
+// payload.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,16 +25,20 @@ enum SemiringId : int {
   kMaxMin = 4,
 };
 
+// Equal non-NaN operands differ at most in the sign of a zero: OR-ing the
+// bits keeps -0.0 (min), AND-ing them keeps +0.0 (max).
 __device__ __forceinline__ float nan_min(float a, float b) {
   if (isnan(a)) return a;
   if (isnan(b)) return b;
-  return (b < a) ? b : a;
+  if (a != b) return (b < a) ? b : a;
+  return __int_as_float(__float_as_int(a) | __float_as_int(b));
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   if (isnan(a)) return a;
   if (isnan(b)) return b;
-  return (a < b) ? b : a;
+  if (a != b) return (a < b) ? b : a;
+  return __int_as_float(__float_as_int(a) & __float_as_int(b));
 }
 
 // combine = ⊕, times = ⊗, ident = ⊕-identity, improves(new, old) = strict
@@ -71,7 +79,7 @@ template <> struct Semiring<kMaxMin> {
   static __device__ __forceinline__ bool improves(float n, float o) { return n > o; }
 };
 
-// One thread per (row, lane) output element; 256 threads a block.
+// Threads a block of the one-thread-per-(row, lane) kernels.
 constexpr int kThreads = 256;
 
 inline unsigned int grid_for(long long n) {

@@ -16,11 +16,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["SEMIRINGS", "SEMIRING_IDS", "MONOTONE_SEMIRINGS", "FOLD_SLICES",
+__all__ = ["minimum", "maximum", "SEMIRINGS", "SEMIRING_IDS", "MONOTONE_SEMIRINGS", "FOLD_SLICES",
            "semiring_improves", "fold_block", "slot_fold", "f32", "LAUNCHES",
            "reset_launches", "check_ell_operands", "check_rows",
            "require_cuda_contiguous", "ell_pack_numpy",
            "ell_bin_widths", "sliced_ell_pack_numpy"]
+
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum`` bit for bit (IEEE 754-2019 minimum): NaN propagates
+    and -0.0 orders below +0.0.  ``torch.minimum`` leaves the signed-zero
+    tie open, and on the CPU its answer depends on the tensor's length
+    (vectorized or scalar loop)."""
+    take_a = torch.logical_or(
+        torch.logical_or(a < b, torch.isnan(a)),
+        torch.logical_and(a == b, torch.signbit(a)))
+    return torch.where(take_a, a, b)
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum`` bit for bit: NaN propagates, +0.0 above -0.0."""
+    take_a = torch.logical_or(
+        torch.logical_or(a > b, torch.isnan(a)),
+        torch.logical_and(a == b, torch.logical_not(torch.signbit(a))))
+    return torch.where(take_a, a, b)
 
 
 #: ``name -> (⊕ combine, ⊗ times, ⊕-identity)``, the reference's table:
@@ -28,10 +47,10 @@ __all__ = ["SEMIRINGS", "SEMIRING_IDS", "MONOTONE_SEMIRINGS", "FOLD_SLICES",
 #: min_mul (min, ×, +inf), max_min (max, min, -inf).
 SEMIRINGS = {
     "add_mul": (torch.add, torch.mul, 0.0),
-    "min_add": (torch.minimum, torch.add, float("inf")),
-    "max_add": (torch.maximum, torch.add, float("-inf")),
-    "min_mul": (torch.minimum, torch.mul, float("inf")),
-    "max_min": (torch.maximum, torch.minimum, float("-inf")),
+    "min_add": (minimum, torch.add, float("inf")),
+    "max_add": (maximum, torch.add, float("-inf")),
+    "min_mul": (minimum, torch.mul, float("inf")),
+    "max_min": (maximum, minimum, float("-inf")),
 }
 
 #: The integer each CUDA launcher takes for a semiring (``csrc/semiring.cuh``).

@@ -13,8 +13,8 @@ from repro_torch.kernels.common import (LAUNCHES, SEMIRING_IDS, SEMIRINGS,
 from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
 
 _ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p])
+         + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p])
 
 
 def ell_spmv(idx, val, msk, x, *, semiring: str = "add_mul"):
@@ -40,8 +40,8 @@ def ell_spmv(idx, val, msk, x, *, semiring: str = "add_mul"):
     with torch.cuda.device(x.device):
         rc = bind("ell_spmv", "graphhp_ell_spmv", _ARGS)(
             SEMIRING_IDS[semiring], idx.data_ptr(), val.data_ptr(),
-            msk.data_ptr(), x.data_ptr(), y.data_ptr(), rows, k,
-            max(lanes, 1), fold_block(k),
+            msk.data_ptr(), x.data_ptr(), y.data_ptr(), rows, x.shape[0],
+            k, max(lanes, 1), fold_block(k),
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"ell_spmv launch failed with CUDA error {rc}")

@@ -15,8 +15,8 @@ from repro_torch.kernels.common import (LAUNCHES, MONOTONE_SEMIRINGS,
 from repro_torch.kernels.min_step.ref import fused_min_step_ref
 
 _ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p])
+         + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p])
 
 
 def fused_min_step(idx, val, msk, x, send, xrow=None, extra=None, *,
@@ -58,7 +58,8 @@ def fused_min_step(idx, val, msk, x, send, xrow=None, extra=None, *,
             SEMIRING_IDS[semiring], idx.data_ptr(), val.data_ptr(),
             msk.data_ptr(), x.data_ptr(), send.data_ptr(), xrow.data_ptr(),
             extra.data_ptr(), x_out.data_ptr(), d_out.data_ptr(),
-            send_out.data_ptr(), rows, k, max(lanes, 1), fold_block(k),
+            send_out.data_ptr(), rows, x.shape[0], k, max(lanes, 1),
+            fold_block(k),
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"min_step launch failed with CUDA error {rc}")

@@ -4,8 +4,12 @@ The same numpy-seeded inputs go through the JAX wrapper (Pallas interpret
 mode, as ``tests/test_kernel_engine.py`` runs it) and through the port's
 ``ops.py`` on CPU tensors, which runs the plain PyTorch version.  Both fold
 the slot axis in the same order, so the outputs must be bit-identical for
-every semiring, for slot counts K of 8, 128 and 136 (a ragged second slot
-block), and for an (N, L) lane frontier.
+every semiring, for slot counts K of 8, 128, 136 and 300 (ragged last slot
+blocks), and for an (N, L) lane frontier.  A second set of cases holds the
+same pairs on the values the CUDA kernels treat specially: signed zeros
+(the padding the wide ``ell_spmv`` path skips must still turn a -0.0 sum
+into +0.0), ±inf ties and NaNs, and fold blocks that are all padding
+between occupied ones.
 
 One exception, and why: for the additive kernels (``ell_spmv`` add_mul,
 ``pr_step``) with a lane frontier, XLA:CPU contracts the reference's
@@ -36,7 +40,7 @@ from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
 
 ALL = ("add_mul", "min_add", "max_add", "min_mul", "max_min")
 MONO = ("min_add", "max_add", "min_mul", "max_min")
-KS = (8, 128, 136)
+KS = (8, 128, 136, 300)
 LANES = (0, 3)
 R = 24          # rows; frontier N = R so the fused kernels' xrow defaults hold
 
@@ -65,6 +69,50 @@ def _inputs(seed, k, lanes, exact=False):
         x = rng.uniform(0.0, 3.0, size=shape).astype(np.float32)
     send = rng.rand(*shape) < 0.6
     row = rng.uniform(0.0, 3.0, size=shape).astype(np.float32)
+    return idx, val, msk, x, send, row
+
+
+SPECIAL = ("signed_zeros", "inf_ties", "empty_blocks")
+SPECIAL_KS = (8, 300)
+
+
+def _special_inputs(seed, k, lanes, case, semiring="add_mul"):
+    """ELL tile + frontier on edge-case values, all dyadic so every
+    product is exact (no contraction can change a bit, module doc).  Every
+    third row is fully occupied.
+
+    ``signed_zeros``: ±0 edge values (every fourth row all -0.0) against a
+    frontier of the zero that keeps a product's sign, so sums and ties of
+    ±0 decide the result.  ``inf_ties``: ±inf, ±0 and ±1 mixed in, giving
+    ±inf ties and NaNs.  ``empty_blocks``: all-padding fold blocks between
+    occupied ones (slots 128-255 at K = 300), half-empty rows with a gap
+    and empty rows."""
+    rng = np.random.RandomState(seed)
+    shape = (R, lanes) if lanes else (R,)
+    dyadic = lambda size: (rng.randint(-16, 17, size=size) / 8.0) \
+        .astype(np.float32)
+    idx = rng.randint(0, R, size=(R, k)).astype(np.int32)
+    msk = rng.rand(R, k) < 0.7
+    msk[::3] = True
+    val, x, row = dyadic((R, k)), dyadic(shape), dyadic(shape)
+    if case == "signed_zeros":
+        zeros = lambda size: np.where(rng.rand(*size) < 0.5, -0.0, 0.0) \
+            .astype(np.float32)
+        val, row = zeros((R, k)), zeros(shape)
+        val[::4] = -0.0
+        x = np.full(shape, -0.0 if semiring.endswith("_add") else 0.0,
+                    dtype=np.float32)
+    elif case == "inf_ties":
+        pal = np.array([np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0],
+                       dtype=np.float32)
+        pick = lambda a: np.where(rng.rand(*a.shape) < 0.4,
+                                  pal[rng.randint(0, len(pal), a.shape)], a)
+        val, x, row = pick(val), pick(x), pick(row)
+    else:
+        msk[:, 128:256] = False
+        msk[1::2, k // 2:k // 2 + 2] = False
+        msk[::5] = False
+    send = rng.rand(*shape) < 0.6
     return idx, val, msk, x, send, row
 
 
@@ -137,6 +185,48 @@ def test_lane_columns_match_single_lane_pallas(kernel, k):
             want = jax_pr_step(idx, val, msk, *cols, damping=0.85,
                                tol=1e-3)[1]
         _bits_equal(want, torch.from_numpy(np.ascontiguousarray(got[:, j])))
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("k", SPECIAL_KS)
+@pytest.mark.parametrize("case", SPECIAL)
+@pytest.mark.parametrize("semiring", ALL)
+def test_ell_spmv_special_values_match_pallas(semiring, case, k, lanes):
+    idx, val, msk, x, _, _ = _special_inputs(400 + k + lanes, k, lanes,
+                                             case, semiring)
+    want = jax_ell_spmv(idx, val, msk, x, semiring=semiring)
+    got = ell_spmv(*_t(idx, val, msk, x), semiring=semiring)
+    _bits_equal(want, got)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("k", SPECIAL_KS)
+@pytest.mark.parametrize("case", SPECIAL)
+@pytest.mark.parametrize("semiring", MONO)
+def test_min_step_special_values_match_pallas(semiring, case, k, lanes):
+    idx, val, msk, x, send, row = _special_inputs(500 + k + lanes, k, lanes,
+                                                  case, semiring)
+    extra = row[::-1].copy()
+    want = jax_min_step(idx, val, msk, x, send, row, extra,
+                        semiring=semiring)
+    got = fused_min_step(*_t(idx, val, msk, x, send, row, extra),
+                         semiring=semiring)
+    for w, g in zip(want, got):
+        _bits_equal(w, g)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("k", SPECIAL_KS)
+@pytest.mark.parametrize("case", SPECIAL)
+def test_pr_step_special_values_match_pallas(case, k, lanes):
+    idx, val, msk, x, send, row = _special_inputs(600 + k + lanes, k, lanes,
+                                                  case)
+    extra = row[::-1].copy()
+    args = (idx, val, msk, x, send, row, extra)
+    want = jax_pr_step(*args, damping=0.75, tol=1e-3)
+    got = fused_pr_step(*_t(*args), damping=0.75, tol=1e-3)
+    for w, g in zip(want, got):
+        _bits_equal(w, g)
 
 
 def test_plain_versions_do_not_count_launches():
