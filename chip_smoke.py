@@ -9,9 +9,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
               power limit.
 2. build    — compiles the three CUDA kernels from ``src/repro_torch/csrc``
               with nvcc (one process per source, in parallel).
-2a. sweep   — both ``ell_spmv`` paths (K = 7, 8, 16; 128; 300, 7,056) and
-              ``min_step`` (K = 7, 8, 16) on synthetic tiles against their
-              plain versions: every semiring, (N,) and (N, 4) frontiers,
+2a. sweep   — both ``ell_spmv`` paths (K = 7, 8, 16; 128; 300, 7,056,
+              32,897) and ``min_step`` (K = 7, 8, 16) on synthetic tiles
+              against their plain versions: every semiring, (N,), (N, 4)
+              and, from K = 128 on, (N, 6) frontiers,
               1 % / 50 % / 100 % occupancy and empty fold blocks between
               occupied ones, signed zeros and ±inf ties; bit-identical,
               NaN by position only.
@@ -35,11 +36,13 @@ Phases, one line each (any failure exits non-zero and prints no result):
               on the same CUDA tensors, and the engine's fused steps
               (``fused_step_fn``) against the same steps built over the
               plain versions; times the kernel and, where one PyTorch call
-              computes the same function, that call (``library_ms``) as
-              device time (a CUDA graph of a run of calls, replayed;
-              ``launch_path_ms`` is the same run issued call by call from
-              Python), the plain version call by call, beside the bound the
-              card's memory rate and float32 rate set for the same work.
+              computes the same function, that call (``library_ms``), each
+              issued call by call from Python (``ms``, ``library_ms``) and
+              as device time on cold operands (``device_ms``,
+              ``library_device_ms``: a CUDA graph of a run of calls over
+              copies of the operands, replayed), the plain version call by
+              call, beside the bound the card's memory rate and float32
+              rate set for the same work.
 7. profile  — the first global iterations of each run again under
               ``torch.profiler``: device busy share and device time by
               kernel, ours and PyTorch's glue around them.
@@ -72,6 +75,9 @@ PR_TOL = 1e-5
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# operand bytes a timed run of graph-replayed calls cycles through: three
+# times the H100's 50 MB L2, so no call finds its operands there
+COLD_BYTES = 150_000_000
 
 # (TPU kernel it replaces, CUDA source) per kernel
 KERNELS = {
@@ -115,30 +121,46 @@ def time_ms(fn, reps: int, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, windows: int = 5) -> float:
-    """Like :func:`time_ms`, but the ``reps`` calls are captured once into
-    a CUDA graph and each window replays it: device time per call, without
-    the Python launch path between calls (which is longer than the short
-    kernels themselves).  Falls back to :func:`time_ms` where ``fn`` cannot
-    be captured; returns (ms, "graph" | "eager")."""
+def _clone(t):
     import torch
-    try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        sync()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        sync()
-    except RuntimeError:
-        sync()
-        return time_ms(fn, reps, windows), "eager"
+    if t.layout == torch.sparse_csr:
+        return torch.sparse_csr_tensor(
+            t.crow_indices().clone(), t.col_indices().clone(),
+            t.values().clone(), size=t.shape)
+    return t.clone()
+
+
+def device_ms(call, ops, nbytes: int, reps: int, windows: int = 5) -> float:
+    """Device time per call of ``call(*ops)``: a run of calls captured once
+    into a CUDA graph, each of ``windows`` windows replaying it (median of
+    the windows' mean ms per call), without the host's launch path between
+    calls.  The calls cycle through copies of ``ops`` whose bytes read by
+    a call (``nbytes``, the bound's count) add up to at least
+    ``COLD_BYTES``, so every call reads its operands from HBM, as the
+    engine reaches a bin between passes over larger ones; the run is
+    ``reps`` calls or one per copy, whichever is more.  Raises if the calls
+    cannot be captured."""
+    import torch
+    uniq = {id(t): t for t in ops}
+    copies = max(1, -(-COLD_BYTES // nbytes))
+    sets = [ops]
+    for _ in range(copies - 1):
+        memo = {k: _clone(t) for k, t in uniq.items()}
+        sets.append(tuple(memo[id(t)] for t in ops))
+    reps = max(reps, copies)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(*ops)
+        call(*ops)
+    torch.cuda.current_stream().wait_stream(side)
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            call(*sets[i % copies])
+    graph.replay()
+    sync()
     times = []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
@@ -148,8 +170,8 @@ def device_ms(fn, reps: int, windows: int = 5) -> float:
         end.record()
         sync()
         times.append(start.elapsed_time(end) / reps)
-    del graph
-    return statistics.median(times), "graph"
+    del graph, sets
+    return statistics.median(times)
 
 
 # --------------------------------------------------------------------------
@@ -348,13 +370,21 @@ def _same_nan(a, b):
 # synthetic sweep: both ell_spmv paths and min_step on edge-case values
 # --------------------------------------------------------------------------
 
-# (K, rows) of the ell_spmv tiles: the narrow path (K = 7 takes the scalar
-# fallback, 8 and 16 the unrolled rows), a warp per row (128; two rows a
-# warp from 33,792 rows on), a block per row with a ragged last fold block
-# (300) and the local hub bin's width
-SWEEP_SPMV = ((7, 512), (8, 512), (16, 512), (128, 512), (128, 40000),
-              (300, 256), (7056, 32))
+# (K, rows, frontier lanes) of the ell_spmv tiles, lanes 0 for an (N,)
+# frontier: the narrow path (K = 7 takes the scalar fallback, 8 and 16 the
+# unrolled rows), a warp per row (128; two rows a warp on an (N,) frontier
+# from 33,792 rows on, four per warp the card holds), a block per row with
+# a ragged last fold block (300), the local hub bin's width, and 258 fold
+# blocks (more than the 256 a round holds, the last one slot wide).  Six
+# lanes take a second lane chunk of four.
+SWEEP_SPMV = ((7, 512, (0, 4)), (8, 512, (0, 4)), (16, 512, (0, 4)),
+              (128, 512, (0, 4, 6)), (128, 40000, (0, 4, 6)),
+              (300, 256, (0, 4, 6)), (7056, 32, (0, 4, 6)),
+              (32897, 8, (0, 6)))
 SWEEP_MIN_STEP = ((7, 512), (8, 512), (16, 512))
+# from this width on the plain version of a sweep tile runs on the CPU: it
+# folds slot by slot, and on the card each slot's few ops cost a launch each
+SWEEP_HOST_REF_K = 1024
 SWEEP_FILLS = {"1%": 0.01, "50%": 0.5, "100%": 1.0, "gaps": 0.5}
 SWEEP_N = 4096            # frontier length
 
@@ -399,7 +429,8 @@ def _sweep_values(gen, shape, mode, zero=None, neg_rows=False):
 
 def phase_sweep():
     """Each kernel path against its plain version on synthetic tiles: every
-    semiring, (N,) and (N, 4) frontiers, 1 %, 50 %, 100 % occupancy and
+    semiring, (N,), (N, 4) and (N, 6) frontiers (``SWEEP_SPMV``), 1 %,
+    50 %, 100 % occupancy and
     all-padding blocks between occupied ones, signed zeros and ±inf ties.
     Bit-identical, NaN by position only (``_same_nan``)."""
     import torch
@@ -414,16 +445,18 @@ def phase_sweep():
     # the zero that keeps a ⊗-product's sign that of the tile value
     keep_sign = {"add_mul": 0.0, "min_mul": 0.0, "max_min": 0.0,
                  "min_add": -0.0, "max_add": -0.0}
-    for (k, rows), fill, mode, lanes in (
-            (kr, f, m, L) for kr in SWEEP_SPMV for f in SWEEP_FILLS
-            for m in ("zeros", "infs") for L in (0, 4)):
+    for k, rows, lanes, fill, mode in (
+            (k, r, L, f, m) for k, r, lane_set in SWEEP_SPMV
+            for L in lane_set for f in SWEEP_FILLS for m in ("zeros", "infs")):
         idx, msk = _sweep_tile(gen, rows, k, fill, SWEEP_N)
         xshape = (SWEEP_N, lanes) if lanes else (SWEEP_N,)
         val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
+        on = "cpu" if k >= SWEEP_HOST_REF_K else "cuda"
         for sr in SEMIRINGS:
             x = _sweep_values(gen, xshape, mode, keep_sign[sr])
-            got = ell_spmv(idx, val, msk, x, semiring=sr)
-            want = ell_spmv_ref(idx, val, msk, x, semiring=sr)
+            got = ell_spmv(idx, val, msk, x, semiring=sr).to(on)
+            want = ell_spmv_ref(*(t.to(on) for t in (idx, val, msk, x)),
+                                semiring=sr)
             n_cases += 1
             if not _same_nan(got, want):
                 bad.append(f"ell_spmv K={k} {fill} {mode} L={lanes} {sr}")
@@ -520,20 +553,28 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
     def rand_send(shape):
         return torch.rand(shape, generator=gen, device="cuda") < 0.5
 
-    def case(name, label, fn, ref, bound, library=None, reps=20,
-             plain_reps=2):
-        got, want = fn(), ref()
+    def case(name, label, call, ops, ref, bound, library=None,
+             lib_ops=(), reps=20, plain_reps=2):
+        """``call(*ops)`` against ``ref(*ops)``.  ``ms``/``library_ms``:
+        calls issued one by one from Python on warm operands (the meter of
+        the first port's table); ``device_ms``/``library_device_ms``: the
+        same calls replayed from a CUDA graph on cold operands."""
+        fn = lambda: call(*ops)
+        got, want = fn(), ref(*ops)
         sync()
         same = _same(got, want)
         err = _max_abs_err(got, want)
         row = dict(name=name, shape=label, bit_identical=same,
                    max_abs_err=err)
-        row["ms"], row["timing"] = device_ms(fn, reps)
-        row["launch_path_ms"] = time_ms(fn, reps)
-        row["plain_ms"] = time_ms(ref, plain_reps, windows=3)
         row["bound_ms"], row["bound_by"], row["bytes"], row["nnz"] = bound
-        row["library_ms"], row["library_timing"] = \
-            device_ms(library, reps) if library else (None, None)
+        row["ms"] = time_ms(fn, reps)
+        row["device_ms"] = device_ms(call, ops, row["bytes"], reps)
+        row["plain_ms"] = time_ms(lambda: ref(*ops), plain_reps, windows=3)
+        row["library_ms"] = row["library_device_ms"] = None
+        if library:
+            row["library_ms"] = time_ms(lambda: library(*lib_ops), reps)
+            row["library_device_ms"] = device_ms(library, lib_ops,
+                                                 row["bytes"], reps)
         say("kernels", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                           for k, v in row.items()})
         report.append(row)
@@ -578,8 +619,8 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
     timed = {}
     timed["min_step"] = case(
         "min_step", f"sssp local base {tuple(idx.shape)}",
-        lambda: fused_min_step(idx, val, msk, xf, sf, xf, extra),
-        lambda: fused_min_step_ref(idx, val, msk, xf, sf, xf, extra),
+        fused_min_step, (idx, val, msk, xf, sf, xf, extra),
+        fused_min_step_ref,
         _bound_ms(msk, idx, 17, 2, flag=sf, x_is_row=True))
 
     # --- pr_step: the PageRank local phase's step, spill bins in extra ----
@@ -588,12 +629,12 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
     idx, val, msk, (rf, df, sf), extra = step_operands(
         "pagerank", pr_graph, pr_prog, "pr_step",
         (rank, delta, rand_send(delta.shape)))
+    pr_kw = dict(damping=pr_prog.damping, tol=pr_prog.tol)
     timed["pr_step"] = case(
         "pr_step", f"pagerank local base {tuple(idx.shape)}, spill extra",
-        lambda: fused_pr_step(idx, val, msk, df, sf, rf, extra,
-                              damping=pr_prog.damping, tol=pr_prog.tol),
-        lambda: fused_pr_step_ref(idx, val, msk, df, sf, rf, extra,
-                                  damping=pr_prog.damping, tol=pr_prog.tol),
+        lambda *a: fused_pr_step(*a, **pr_kw),
+        (idx, val, msk, df, sf, rf, extra),
+        lambda *a: fused_pr_step_ref(*a, **pr_kw),
         _bound_ms(msk, idx, 17, 3, flag=sf))
 
     # --- ell_spmv: every bin of both graphs' layouts ----------------------
@@ -616,20 +657,20 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
             for b, s in enumerate(slices):
                 _, idx, msk = slice_flat(s, graph, graph.n_partitions)
                 val = s.val.reshape(-1, s.kb)
-                lib = None
+                lib, lib_ops = None, ()
                 if sr == "add_mul":
-                    csr = _csr_library(idx, val, msk, x.shape[0])
-                    xc = x[:, None]
-                    lib = lambda csr=csr, xc=xc: torch.sparse.mm(csr, xc)
+                    lib = torch.sparse.mm
+                    lib_ops = (_csr_library(idx, val, msk, x.shape[0]),
+                               x[:, None])
                 long_row = s.kb > 1024
                 row = case(
                     "ell_spmv", f"{app} {edges} bin{b} {tuple(idx.shape)}",
-                    lambda idx=idx, val=val, msk=msk, x=x, sr=sr:
-                        ell_spmv(idx, val, msk, x, semiring=sr),
-                    lambda idx=idx, val=val, msk=msk, x=x, sr=sr:
-                        ell_spmv_ref(idx, val, msk, x, semiring=sr),
+                    lambda *a, sr=sr: ell_spmv(*a, semiring=sr),
+                    (idx, val, msk, x),
+                    lambda *a, sr=sr: ell_spmv_ref(*a, semiring=sr),
                     _bound_ms(msk, idx, 4, 2),
-                    library=lib, reps=5 if long_row else 20,
+                    library=lib, lib_ops=lib_ops,
+                    reps=5 if long_row else 20,
                     plain_reps=1 if long_row else 2)
                 # the ell_spmv of the JSON line: the PageRank local phase's
                 # widest spill bin, launched every pseudo-superstep
@@ -737,7 +778,9 @@ def main() -> int:
             launches=launches[name], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape=row["shape"]))
+            library_ms=row["library_ms"], device_ms=row["device_ms"],
+            library_device_ms=row["library_device_ms"],
+            shape=row["shape"]))
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke_report.json"),

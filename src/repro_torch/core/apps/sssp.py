@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.vertex_program import Channel, StepInfo, VertexProgram
+from repro_torch.kernels.common import minimum
 
 INF = float("inf")
 
@@ -43,6 +44,6 @@ class SSSP(VertexProgram):
 
     def apply(self, state, inbox, gid, vmask, vdata, info: StepInfo):
         (msg,), has = inbox["dist"]
-        new = torch.minimum(state["dist"], torch.where(has, msg, INF))
+        new = minimum(state["dist"], torch.where(has, msg, INF))
         send = new < state["dist"]
         return {"dist": new}, {"dist": new}, send, torch.zeros_like(send)

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.graph import EllSlice, PartitionedGraph
 from repro_torch.core.vertex_program import Channel, StepInfo, VertexProgram
-from repro_torch.kernels.common import SEMIRINGS
+from repro_torch.kernels.common import SEMIRINGS, maximum, minimum
 
 __all__ = ["Counters", "EngineState", "init_state", "exchange", "deliver",
            "apply_phase", "merge_inbox", "quiescent", "gather_per_partition",
@@ -140,9 +140,9 @@ def merge_inbox(ch: Channel, a, b):
     if ch.combiner == "sum":
         out = tuple(x + y for x, y in zip(pa, pb))
     elif ch.combiner == "min":
-        out = tuple(torch.minimum(x, y) for x, y in zip(pa, pb))
+        out = tuple(minimum(x, y) for x, y in zip(pa, pb))
     elif ch.combiner == "max":
-        out = tuple(torch.maximum(x, y) for x, y in zip(pa, pb))
+        out = tuple(maximum(x, y) for x, y in zip(pa, pb))
     else:
         raise NotImplementedError(
             f"combiner {ch.combiner!r} is not ported yet")
@@ -199,17 +199,16 @@ def _scatter(semiring: str, y: torch.Tensor, rows: torch.Tensor,
     """⊕-scatter spill-bin partials ``v`` onto ``y`` at ``rows``.  Padded
     rows carry the sentinel ``len(y)``: they land in one extra trash row,
     dropped again (the reference's ``mode="drop"``).  Rows are unique
-    within a bin, so the scatter is deterministic."""
+    within a bin, so min/max is a gather, the semiring's ⊕ and a copy
+    back, deterministic everywhere but in the trash row."""
     n = y.shape[0]
-    _, _, ident = SEMIRINGS[semiring]
+    combine, _, ident = SEMIRINGS[semiring]
     ext = torch.cat([y, y.new_full((1,) + tuple(y.shape[1:]), ident)])
     rows = rows.long().clamp(max=n)
     if semiring == "add_mul":
         ext.index_add_(0, rows, v)
     else:
-        reduce = "amin" if semiring.startswith("min") else "amax"
-        idx = rows.reshape((-1,) + (1,) * (v.dim() - 1)).expand_as(v)
-        ext.scatter_reduce_(0, idx, v, reduce=reduce, include_self=True)
+        ext.index_copy_(0, rows, combine(ext.index_select(0, rows), v))
     return ext[:n]
 
 

@@ -54,6 +54,10 @@
 //     identity, since x ⊕ e ⊕ e = x ⊕ e bit for bit.  On the hub bins
 //     (99 % padding) the kernel is then one pass over the mask at nearly
 //     the memory rate, plus the few occupied blocks.
+//     A row of more than 256 fold blocks (K > 32,768) goes in rounds of
+//     256, the left-to-right fold carried from one round to the next.
+//   - An (N, L) frontier of more than four lanes takes lane chunks of
+//     four, one per blockIdx.y.
 //
 // Why skipping padding is exact.  The reference folds every slot, a masked
 // or pad slot as the ⊕ identity e.  For min_add, max_add, min_mul and
@@ -441,20 +445,14 @@ void launch_narrow_k(const int* idx, const float* val, const unsigned char* msk,
   }
 }
 
-// Two rows a warp halve the warps: worth it only on bins of at least four
-// rows per warp the card holds (132 SMs × 64 warps), which then still fill
-// it twice over.
-constexpr long long kManyRows = 4LL * 132 * 64;
-
 template <int S, int RW>
-void launch_warp_rows(const int* idx, const float* val, const unsigned char* msk,
-                      const float* x, float* y, long long rows, int lanes,
-                      int lcap, cudaStream_t stream) {
+void launch_rows_per_warp(const int* idx, const float* val,
+                          const unsigned char* msk, const float* x, float* y,
+                          long long rows, int lanes, int lcap, int sms,
+                          cudaStream_t stream) {
   // persistent: as many blocks as the card holds at once, or fewer
   const size_t smem = sizeof(float) * kWarps * RW * kFold * lcap;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, ell_warp_rows_kernel<S, RW>, kWarps * 32, smem);
   const long long warps = (rows + RW - 1) / RW;
@@ -464,6 +462,25 @@ void launch_warp_rows(const int* idx, const float* val, const unsigned char* msk
                   static_cast<unsigned>((lanes + lcap - 1) / lcap));
   ell_warp_rows_kernel<S, RW><<<grid, kWarps * 32, smem, stream>>>(
       idx, val, msk, x, y, rows, lanes, lcap);
+}
+
+// K = 128.  Two rows a warp halve the warps: worth it only on an (N,)
+// frontier and a bin of at least four rows per warp the card holds at once,
+// which then still fill it twice over (on the H100's 132 SMs × 64 warps,
+// from 33,792 rows on).
+template <int S>
+void launch_warp_rows(const int* idx, const float* val, const unsigned char* msk,
+                      const float* x, float* y, long long rows, int lanes,
+                      int lcap, cudaStream_t stream) {
+  int dev = 0, sms = 0, sm_threads = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&sm_threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  const long long many_rows = 4LL * sms * (sm_threads / 32);
+  if (lanes == 1 && rows >= many_rows)
+    launch_rows_per_warp<S, 2>(idx, val, msk, x, y, rows, 1, 1, sms, stream);
+  else
+    launch_rows_per_warp<S, 1>(idx, val, msk, x, y, rows, lanes, lcap, sms, stream);
 }
 
 template <int S>
@@ -484,10 +501,7 @@ void launch(const void* idx_, const void* val_, const void* msk_,
   }
   const int lcap = std::min(lanes, kLaneChunk);
   if (k_slots == kFold) {
-    if (lanes == 1 && rows >= kManyRows)
-      launch_warp_rows<S, 2>(idx, val, msk, x, y, rows, 1, 1, stream);
-    else
-      launch_warp_rows<S, 1>(idx, val, msk, x, y, rows, lanes, lcap, stream);
+    launch_warp_rows<S>(idx, val, msk, x, y, rows, lanes, lcap, stream);
     return;
   }
   const int nb = (k_slots + kFold - 1) / kFold;
