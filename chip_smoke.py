@@ -10,11 +10,13 @@ Phases, one line each (any failure exits non-zero and prints no result):
 2. build    — compiles the three CUDA kernels from ``src/repro_torch/csrc``
               with nvcc (one process per source, in parallel).
 2a. sweep   — both ``ell_spmv`` paths (K = 7, 8, 16; 128; 300, 7,056,
-              32,897) and ``min_step`` (K = 7, 8, 16) on synthetic tiles
+              32,897), ``min_step`` (K = 7, 8, 16) and both ``pr_step``
+              paths (K = 7, 8, 16, 300; aligned, one row and one element
+              into a larger buffer) on synthetic tiles
               against their plain versions: every semiring, (N,), (N, 4)
-              and, from K = 128 on, (N, 6) frontiers,
+              and (N, 6) frontiers,
               1 % / 50 % / 100 % occupancy and empty fold blocks between
-              occupied ones, signed zeros and ±inf ties; bit-identical,
+              occupied ones, signed zeros, ±inf ties and NaN; bit-identical,
               NaN by position only.
 3. graphs   — builds the two main-path graphs on the host and moves them
               to the card: SSSP on a 2048 x 2048 road-like grid (4,194,304
@@ -382,6 +384,17 @@ SWEEP_SPMV = ((7, 512, (0, 4)), (8, 512, (0, 4)), (16, 512, (0, 4)),
               (300, 256, (0, 4, 6)), (7056, 32, (0, 4, 6)),
               (32897, 8, (0, 6)))
 SWEEP_MIN_STEP = ((7, 512), (8, 512), (16, 512))
+# (K, rows, frontier lanes) of the pr_step tiles: the rows path
+# (K = 8 and 16 on an (N,) frontier, also over 600,001 rows: thousands of
+# warps of every fill) and the thread-per-(row, lane) path (K = 7 and 300 with its
+# ragged last fold block, every lane frontier).  Row counts are not
+# multiples of 32.  Each tile also lies one row into a larger buffer
+# (still aligned at K = 8 and 16) and one element in (misaligned: the
+# thread path).
+SWEEP_PR_STEP = ((7, 517, (0, 4, 6)), (8, 517, (0, 4, 6)),
+                 (16, 517, (0, 4, 6)), (300, 517, (0, 4, 6)),
+                 (8, 600_001, (0,)), (16, 600_001, (0,)))
+SWEEP_OFFSETS = ("none", "row", "element")
 # from this width on the plain version of a sweep tile runs on the CPU: it
 # folds slot by slot, and on the card each slot's few ops cost a launch each
 SWEEP_HOST_REF_K = 1024
@@ -427,17 +440,60 @@ def _sweep_values(gen, shape, mode, zero=None, neg_rows=False):
     return torch.where(torch.rand(shape, **kw) < 0.25, pick, u).contiguous()
 
 
+def _offset(t, how):
+    """``t`` copied into a larger buffer, one row (``row``) or one element
+    (``element``) from its start, or ``t`` itself (``none``)."""
+    import torch
+    if how == "none":
+        return t
+    pad = t.shape[1] if how == "row" else 1
+    buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=t.device)
+    buf[pad:] = t.reshape(-1)
+    return buf[pad:].view(t.shape)
+
+
+def _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, offset):
+    """Operands of one pr_step sweep case.  ``zeros``: ±0 edge values with
+    every fourth row all -0.0, delta +0.0 (so every term keeps its edge
+    value's sign) and an ``extra`` of -0.0.  ``infs``: the ``infs``
+    palette for every operand, every fourth row's edge values negative,
+    plus NaN edge values.  Either way about a
+    third of the send flags are clear, so occupied slots with a clear flag
+    carry -0.0, -1, ±inf and NaN values."""
+    import torch
+    idx, msk = _sweep_tile(gen, rows, k, fill, SWEEP_N)
+    shape = (SWEEP_N, lanes) if lanes else (SWEEP_N,)
+    rshape = (rows, lanes) if lanes else (rows,)
+    val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
+    if mode == "zeros":
+        delta = _sweep_values(gen, shape, mode, 0.0)
+        extra = torch.full(rshape, -0.0, device="cuda")
+    else:
+        val[::4] = -val[::4].abs()
+        nan = torch.rand((rows, k), generator=gen, device="cuda") < 0.05
+        val = torch.where(nan, float("nan"), val)
+        delta = _sweep_values(gen, shape, mode)
+        extra = _sweep_values(gen, rshape, mode)
+    rank = _sweep_values(gen, rshape, mode)
+    send = torch.rand(shape, generator=gen, device="cuda") < 0.7
+    idx, val, msk = (_offset(t, offset) for t in (idx, val, msk))
+    return idx, val, msk, delta, send, rank, extra
+
+
 def phase_sweep():
     """Each kernel path against its plain version on synthetic tiles: every
-    semiring, (N,), (N, 4) and (N, 6) frontiers (``SWEEP_SPMV``), 1 %,
-    50 %, 100 % occupancy and
-    all-padding blocks between occupied ones, signed zeros and ±inf ties.
-    Bit-identical, NaN by position only (``_same_nan``)."""
+    semiring, (N,), (N, 4) and (N, 6) frontiers (``SWEEP_SPMV``,
+    ``SWEEP_PR_STEP``), 1 %, 50 %, 100 % occupancy and
+    all-padding blocks between occupied ones, signed zeros and ±inf ties;
+    ``pr_step`` also on tiles offset into a larger buffer
+    (``SWEEP_OFFSETS``).  Bit-identical, NaN by position only
+    (``_same_nan``)."""
     import torch
     from repro_torch.kernels.common import MONOTONE_SEMIRINGS, SEMIRINGS
     from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
     from repro_torch.kernels.min_step import (fused_min_step,
                                               fused_min_step_ref)
+    from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     t = time.perf_counter()
@@ -478,6 +534,17 @@ def phase_sweep():
             n_cases += 1
             if not _same_nan(got, want):
                 bad.append(f"min_step K={k} {fill} {mode} L={lanes} {sr}")
+    for k, rows, lanes, fill, mode, offset in (
+            (k, r, L, f, m, o) for k, r, lane_set in SWEEP_PR_STEP
+            for L in lane_set for f in SWEEP_FILLS for m in ("zeros", "infs")
+            for o in SWEEP_OFFSETS):
+        ops = _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, offset)
+        got = fused_pr_step(*ops)
+        want = fused_pr_step_ref(*ops)
+        n_cases += 1
+        if not _same_nan(got, want):
+            bad.append(f"pr_step K={k} rows={rows} {fill} {mode} L={lanes} "
+                       f"offset={offset}")
     sync()
     say("sweep", cases=n_cases, failed=len(bad),
         seconds=f"{time.perf_counter() - t:.1f}")

@@ -14,8 +14,8 @@ from repro_torch.kernels.common import (LAUNCHES, check_ell_operands,
 from repro_torch.kernels.pr_step.ref import fused_pr_step_ref
 
 _ARGS = ([ctypes.c_void_p] * 10
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+         + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
 def fused_pr_step(idx, val, msk, delta, send, rank, extra=None, *,
@@ -55,7 +55,8 @@ def fused_pr_step(idx, val, msk, delta, send, rank, extra=None, *,
             idx.data_ptr(), val.data_ptr(), msk.data_ptr(),
             delta.data_ptr(), send.data_ptr(), rank.data_ptr(),
             extra.data_ptr(), rank_out.data_ptr(), d_out.data_ptr(),
-            send_out.data_ptr(), rows, k, max(lanes, 1), fold_block(k),
+            send_out.data_ptr(), rows, delta.shape[0], k, max(lanes, 1),
+            fold_block(k),
             f32(damping), f32(tol), torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"pr_step launch failed with CUDA error {rc}")

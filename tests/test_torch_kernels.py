@@ -54,6 +54,21 @@ def _bits_equal(want, got):
         np.nonzero(want != got)
 
 
+def _bits_equal_nan(want, got):
+    """``_bits_equal`` outside NaNs, and NaN at the same positions.  A
+    NaN's sign and payload are no part of the kernels' contract, and the
+    two CPU frameworks differ in them: the reference gives +NaN where
+    PyTorch's float32 ops give x86's default -NaN."""
+    want, got = np.asarray(want), got.numpy()
+    assert want.shape == got.shape and want.dtype == got.dtype
+    if want.dtype != np.float32:
+        return _bits_equal(want, torch.from_numpy(got))
+    nan = np.isnan(want)
+    assert np.array_equal(nan, np.isnan(got)), np.nonzero(nan != np.isnan(got))
+    _bits_equal(np.where(nan, 0.0, want).astype(np.float32),
+                torch.from_numpy(np.where(nan, 0.0, got).astype(np.float32)))
+
+
 def _inputs(seed, k, lanes, exact=False):
     """ELL tile + frontier.  ``exact``: dyadic values of few significant
     bits, whose products float32 holds exactly."""
@@ -74,6 +89,7 @@ def _inputs(seed, k, lanes, exact=False):
 
 SPECIAL = ("signed_zeros", "inf_ties", "empty_blocks")
 SPECIAL_KS = (8, 300)
+PR_SPECIAL = SPECIAL + ("unsent_special_val",)
 
 
 def _special_inputs(seed, k, lanes, case, semiring="add_mul"):
@@ -86,7 +102,13 @@ def _special_inputs(seed, k, lanes, case, semiring="add_mul"):
     ±0 decide the result.  ``inf_ties``: ±inf, ±0 and ±1 mixed in, giving
     ±inf ties and NaNs.  ``empty_blocks``: all-padding fold blocks between
     occupied ones (slots 128-255 at K = 300), half-empty rows with a gap
-    and empty rows."""
+    and empty rows.  ``unsent_special_val`` (``pr_step``): every source's
+    send flag the same in all lanes, and the occupied slots of unsent
+    sources carry -0.0, -1, +inf or NaN, whose term (d·val)·0.0 is -0.0 or
+    NaN; row 0's first slot is masked, and row 1 is fully occupied by
+    unsent sources of -0.0 or -1 (a sum of -0.0 terms) with a -0.0
+    ``extra`` (``row[-2]``, which the test reverses into ``extra``); +inf
+    and NaN only in every fourth row."""
     rng = np.random.RandomState(seed)
     shape = (R, lanes) if lanes else (R,)
     dyadic = lambda size: (rng.randint(-16, 17, size=size) / 8.0) \
@@ -108,6 +130,23 @@ def _special_inputs(seed, k, lanes, case, semiring="add_mul"):
         pick = lambda a: np.where(rng.rand(*a.shape) < 0.4,
                                   pal[rng.randint(0, len(pal), a.shape)], a)
         val, x, row = pick(val), pick(x), pick(row)
+    elif case == "unsent_special_val":
+        off = rng.rand(R) < 0.5
+        off[:2] = (True, False)
+        unsent = np.flatnonzero(off)
+        idx[1] = unsent[rng.randint(0, len(unsent), size=k)]
+        msk[0, 0] = False
+        msk[1] = True
+        pal = np.array([-0.0, -1.0, np.inf, np.nan], dtype=np.float32)
+        # +inf and NaN only in every fourth row, so the others stay finite
+        n_pal = np.where(np.arange(R) % 4 == 2, 4, 2)[:, None]
+        pick = pal[(rng.rand(R, k) * n_pal).astype(np.int64)]
+        val = np.where(off[idx], pick, val)
+        val[1] = pal[rng.randint(0, 2, size=k)]
+        row[R - 2] = -0.0
+        send = np.broadcast_to((~off)[:, None] if lanes else ~off,
+                               shape).copy()
+        return idx, val, msk, x, send, row
     else:
         msk[:, 128:256] = False
         msk[1::2, k // 2:k // 2 + 2] = False
@@ -217,7 +256,7 @@ def test_min_step_special_values_match_pallas(semiring, case, k, lanes):
 
 @pytest.mark.parametrize("lanes", LANES)
 @pytest.mark.parametrize("k", SPECIAL_KS)
-@pytest.mark.parametrize("case", SPECIAL)
+@pytest.mark.parametrize("case", PR_SPECIAL)
 def test_pr_step_special_values_match_pallas(case, k, lanes):
     idx, val, msk, x, send, row = _special_inputs(600 + k + lanes, k, lanes,
                                                   case)
@@ -225,8 +264,9 @@ def test_pr_step_special_values_match_pallas(case, k, lanes):
     args = (idx, val, msk, x, send, row, extra)
     want = jax_pr_step(*args, damping=0.75, tol=1e-3)
     got = fused_pr_step(*_t(*args), damping=0.75, tol=1e-3)
+    same = _bits_equal_nan if case == "unsent_special_val" else _bits_equal
     for w, g in zip(want, got):
-        _bits_equal(w, g)
+        same(w, g)
 
 
 def test_plain_versions_do_not_count_launches():
@@ -266,7 +306,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
 @pytest.mark.parametrize("lanes", LANES)
 def test_cuda_kernels_match_plain_versions(lanes):
     """On the card: each kernel bit-identical to its plain version on the
-    same CUDA tensors, and each launch counted."""
+    same CUDA tensors, and each launch counted.  ``pr_step`` also on the
+    unsent-special-val inputs at K = 8 and 16, whose fresh (aligned) tiles
+    take the rows path with an (N,) frontier and the thread path with
+    lanes (NaN by position, as on the CPU)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     idx, val, msk, x, send, row = (t.cuda() for t in
@@ -287,6 +330,16 @@ def test_cuda_kernels_match_plain_versions(lanes):
     got = fused_pr_step(idx, val, msk, x, send, row, tol=1e-3)
     for w, g in zip(want, got):
         _bits_equal(w.cpu().numpy(), g.cpu())
+    for k in (8, 16):
+        idx, val, msk, x, send, row = (t.cuda() for t in _t(
+            *_special_inputs(700 + k, k, lanes, "unsent_special_val")))
+        extra = row.flip(0).contiguous()
+        want = fused_pr_step_ref(idx, val, msk, x, send, row, extra,
+                                 damping=0.75, tol=1e-3)
+        got = fused_pr_step(idx, val, msk, x, send, row, extra,
+                            damping=0.75, tol=1e-3)
+        for w, g in zip(want, got):
+            _bits_equal_nan(w.cpu().numpy(), g.cpu())
     assert LAUNCHES["ell_spmv"] == before["ell_spmv"] + len(ALL)
     assert LAUNCHES["min_step"] == before["min_step"] + len(MONO)
-    assert LAUNCHES["pr_step"] == before["pr_step"] + 1
+    assert LAUNCHES["pr_step"] == before["pr_step"] + 3
