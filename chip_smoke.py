@@ -48,6 +48,31 @@ Phases, one line each (any failure exits non-zero and prints no result):
 7. profile  — the first global iterations of each run again under
               ``torch.profiler``: device busy share and device time by
               kernel, ours and PyTorch's glue around them.
+8. engines  — Hama and AM-Hama on both graphs: ``run_bsp`` and
+              ``run_am`` (ELL) on the grid, their distances held bit for
+              bit against ``run_hybrid``'s (a monotone fixed point does
+              not depend on the engine); ``run_bsp``, ``run_am`` and
+              ``run_bsp(use_ell=False)`` (the dense path at full size) on
+              the R-MAT graph against the power-iteration oracle; one
+              dense ``deliver(edges="all")`` on the R-MAT graph after
+              ``init_state`` and an exchange (16.4 M edges, the hubs'
+              in-degrees), card against host copies bit for bit — the
+              ordered segment fold of the sum channel; and the paper's
+              table of I, M and pseudo-supersteps for hybrid, BSP and AM
+              on both graphs.  Each run counted like ``main`` (ELL BSP/AM
+              must launch ``ell_spmv`` only).
+9. apps     — WCC through ``run_hybrid`` on the grid against scipy's
+              connected components (exact labels); then WidestPath,
+              RandomWalk (odds, logprob), BipartiteMatching,
+              MultiSourceMonotone (K = 4, min_add and max_min) and
+              PersonalizedPageRank (K = 4) on R-MAT 2^16 (bipartite:
+              2^15 + 2^15), each through all three engines × {ell, dense}
+              on the card and on the host, state, masks, iterations and
+              counters bit for bit; launches per kernel per app.  Fails
+              unless ``min_step`` ran under a semiring other than
+              ``min_add`` and ``pr_step`` ran with lanes.
+
+Every phase prints its wall time.
 
 The second-to-last line is ``{"kernels": [...]}``, the line before it the
 card's name and power limit, and the last line
@@ -249,20 +274,23 @@ def rmat_pagerank_graph():
     return graph, (edges, w, n), secs
 
 
-def run_main(app, graph, prog):
-    """One ``run_hybrid`` through the entry point a user calls, counts
-    zeroed just before and read just after."""
+def run_counted(phase, app, engine, graph, prog, use_ell=True, vdata=None,
+                quiet=False):
+    """One ``run_hybrid`` / ``run_bsp`` / ``run_am`` (``engine``) through
+    the entry point a user calls, launch and host-read counts zeroed just
+    before and read just after."""
     import torch
-    from repro_torch import run_hybrid
+    from repro_torch import run_am, run_bsp, run_hybrid
     from repro_torch.exec.syncs import host_reads, reset_host_reads
     from repro_torch.kernels.common import LAUNCHES, reset_launches
 
+    runner = {"hybrid": run_hybrid, "bsp": run_bsp, "am": run_am}[engine]
     sync()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reset_host_reads()
     t = time.perf_counter()
-    es, iters = run_hybrid(graph, prog)
+    es, iters = runner(graph, prog, vdata=vdata, use_ell=use_ell)
     sync()
     secs = time.perf_counter() - t
     launches = dict(LAUNCHES)
@@ -274,10 +302,12 @@ def run_main(app, graph, prog):
                     net_local_messages=int(c.net_local_messages),
                     mem_messages=int(c.mem_messages))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    say("main", app=app, iterations=iters, run_s=f"{secs:.3f}",
-        peak_device_GiB=f"{peak:.2f}", host_syncs=syncs,
-        launches=json.dumps(launches).replace(" ", ""),
-        counters=json.dumps(counters).replace(" ", ""))
+    if not quiet:
+        say(phase, app=app, engine=engine,
+            delivery="ell" if use_ell else "dense", iterations=iters,
+            run_s=f"{secs:.3f}", peak_device_GiB=f"{peak:.2f}",
+            host_syncs=syncs, launches=json.dumps(launches).replace(" ", ""),
+            counters=json.dumps(counters).replace(" ", ""))
     return es, dict(iterations=iters, run_s=secs, peak_device_GiB=peak,
                     host_syncs=syncs, launches=launches, counters=counters)
 
@@ -808,7 +838,318 @@ def phase_profile(app, graph, prog, iters):
                 top_kernels=table)
 
 
+# --------------------------------------------------------------------------
+# engines: Hama (BSP) and AM-Hama on the two full-size graphs
+# --------------------------------------------------------------------------
+
+def cpu_copy(graph):
+    """The graph's tensors on the host, without its ELL layouts: what the
+    dense delivery path reads, at a fraction of the copy."""
+    import dataclasses
+    import torch
+    kw = {f.name: getattr(graph, f.name).cpu()
+          for f in dataclasses.fields(graph)
+          if isinstance(getattr(graph, f.name), torch.Tensor)}
+    return dataclasses.replace(graph, local_ell=(), remote_ell=(), **kw)
+
+
+def check_dense_deliver(graph, prog):
+    """One dense ``deliver(edges="all")`` after ``init_state`` and one
+    exchange (every vertex sends, so all of the graph's edges carry a
+    message, hubs included), on the card and on host copies of the graph
+    and state: pending inboxes and counters bit for bit.  Also counts the
+    destinations where ``index_add_`` on the card (atomics, any order)
+    lands elsewhere than the ordered fold — the check's sensitivity."""
+    import torch
+    from repro_torch.convert import engine_state_from_numpy, to_numpy
+    from repro_torch.core.runtime import dense_plan, deliver, exchange, \
+        init_state
+
+    es = exchange(graph, init_state(graph, prog, None))
+    t = time.perf_counter()
+    got, _ = deliver(graph, prog, es, "all", use_ell=False)
+    sync()
+    card_s = time.perf_counter() - t
+    cpu_graph = cpu_copy(graph)
+    cpu_es = engine_state_from_numpy(to_numpy(es), device="cpu")
+    t = time.perf_counter()
+    want, _ = deliver(cpu_graph, prog, cpu_es, "all", use_ell=False)
+    cpu_s = time.perf_counter() - t
+    ch = prog.channels[0].name
+    (g,), g_has = got.pending[ch]
+    (w,), w_has = want.pending[ch]
+    same = _same((g.cpu(), g_has.cpu()), (w, w_has))
+    for f in ("net_messages", "net_local_messages", "mem_messages"):
+        same = same and int(getattr(got.counters, f)) == \
+            int(getattr(want.counters, f))
+    # the same messages through index_add_ on the card
+    plan = dense_plan(graph)
+    src = plan.src
+    cat = torch.cat([es.out[ch], es.halo_out[ch]], dim=1).reshape(-1)
+    sent = torch.cat([es.send, es.halo_send], dim=1).reshape(-1)[src]
+    (msg,), _ = prog.emit(prog.channels[0], {ch: cat[src]},
+                          graph.edge_w.reshape(-1), None, None)
+    msg = torch.where(sent & graph.edge_mask.reshape(-1), msg, 0.0)
+    atomic = torch.zeros(g.numel(), device=g.device).index_add_(
+        0, plan.dst, msg)
+    differ = int((atomic.view(torch.int32)
+                  != g.reshape(-1).view(torch.int32)).sum())
+    say("engines", check="dense deliver all", edges=graph.n_edges,
+        net_messages=int(got.counters.net_messages),
+        mem_messages=int(got.counters.mem_messages),
+        card_s=f"{card_s:.3f}", host_s=f"{cpu_s:.3f}",
+        bit_identical=same, index_add_differs_at=differ)
+    if not same:
+        raise AssertionError("dense deliver: card and host differ")
+    return dict(card_s=card_s, host_s=cpu_s, bit_identical=same,
+                index_add_differs_at=differ)
+
+
+def phase_engines(sssp_graph, sssp_es, sssp_run, pr_graph, pr_run,
+                  pr_data):
+    """``run_bsp`` and ``run_am`` (ELL) on both full-size graphs — SSSP
+    distances bit-identical to ``run_hybrid``'s, PageRank against the
+    power-iteration oracle — ``run_bsp`` on the dense path on the R-MAT
+    graph, one full-size dense ``deliver``, and the paper's I / M /
+    pseudo-superstep table."""
+    import torch
+    from repro_torch import SSSP, IncrementalPageRank
+
+    t0 = time.perf_counter()
+    runs = {("sssp", "hybrid-ell"): sssp_run,
+            ("pagerank", "hybrid-ell"): pr_run}
+    oracle = {}
+    want = sssp_es.state["dist"]
+    for engine in ("bsp", "am"):
+        es, run = run_counted("engines", "sssp", engine, sssp_graph,
+                              SSSP(source=0))
+        same = _same(es.state["dist"], want)
+        say("engines", app="sssp", engine=engine,
+            dist_bit_identical_to_hybrid=same)
+        if not same:
+            raise AssertionError(f"{engine} SSSP distances differ from "
+                                 f"hybrid's")
+        runs[("sssp", f"{engine}-ell")] = run
+        del es
+    for engine, use_ell in (("bsp", True), ("am", True), ("bsp", False)):
+        es, run = run_counted("engines", "pagerank", engine, pr_graph,
+                              IncrementalPageRank(tolerance=PR_TOL),
+                              use_ell=use_ell)
+        label = f"{engine}-{'ell' if use_ell else 'dense'}"
+        oracle[label] = check_pagerank(pr_graph, es, pr_data)
+        runs[("pagerank", label)] = run
+        del es
+    for (app, label), run in runs.items():
+        if label.endswith("ell") and not label.startswith("hybrid"):
+            extra = {k: v for k, v in run["launches"].items()
+                     if k != "ell_spmv" and v}
+            if extra or not run["launches"]["ell_spmv"]:
+                raise AssertionError(f"{app} {label}: launches "
+                                     f"{run['launches']}, want ell_spmv "
+                                     f"only")
+    dense = check_dense_deliver(pr_graph,
+                                IncrementalPageRank(tolerance=PR_TOL))
+    torch.cuda.empty_cache()
+    table = []
+    for (app, label), run in runs.items():
+        c = run["counters"]
+        row = dict(graph=app, engine=label, I=c["iterations"],
+                   M=c["net_messages"], M_local=c["net_local_messages"],
+                   in_memory=c["mem_messages"],
+                   pseudo_supersteps=c["pseudo_supersteps"],
+                   run_s=round(run["run_s"], 3),
+                   host_syncs=run["host_syncs"],
+                   peak_device_GiB=round(run["peak_device_GiB"], 2),
+                   launches=run["launches"])
+        table.append(row)
+        say("engines", table=json.dumps(row).replace(" ", ""))
+    secs = time.perf_counter() - t0
+    say("engines", phase_s=f"{secs:.1f}")
+    return dict(table=table, pagerank_oracle_max_abs_err=oracle,
+                dense_deliver=dense, phase_s=secs)
+
+
+# --------------------------------------------------------------------------
+# apps: the other apps, card against host, every engine x delivery
+# --------------------------------------------------------------------------
+
+APPS_LOG2 = 16            # R-MAT size of the apps phase
+APPS_PARTITIONS = 16
+APPS_LANES = 4
+
+
+def apps_workloads(device):
+    """``{app: (graph, make_prog, vdata)}`` of the apps phase on ``device``:
+    R-MAT 2^16 (avg degree 8, hash partition, P = 16, a 16-slot ELL base
+    bin, so hubs spill as on the PageRank graph) in each app's weight
+    convention, and ``bipartite_graph(2^15, 2^15)`` for the matching.
+    Everything is made from fixed seeds, so both devices get the same."""
+    import numpy as np
+    from repro_torch import (BipartiteMatching, MultiSourceMonotone,
+                             PersonalizedPageRank, RandomWalk, WidestPath,
+                             build_partitioned_graph, pagerank_edge_weights,
+                             random_walk_edge_weights)
+    from repro_torch.data.graphs import bipartite_graph, rmat_graph
+    from repro_torch.partition import hash_partition
+
+    edges, n = rmat_graph(1 << APPS_LOG2, avg_degree=8, seed=2)
+    part = hash_partition(n, APPS_PARTITIONS, seed=0)
+    uniform = np.random.default_rng(3).uniform(0.5, 8.0, len(edges)) \
+        .astype(np.float32)
+    senders = np.flatnonzero(np.bincount(edges[:, 0], minlength=n))
+    sources = np.random.default_rng(4).choice(senders, APPS_LANES,
+                                              replace=False)
+    graphs = {}
+
+    def graph(weights):
+        if weights not in graphs:
+            w = {"uniform": uniform,
+                 "pagerank": pagerank_edge_weights(edges, n),
+                 "odds": random_walk_edge_weights(edges, n, "odds"),
+                 "logprob": random_walk_edge_weights(edges, n, "logprob"),
+                 }[weights]
+            graphs[weights] = build_partitioned_graph(
+                edges, n, part, weights=w, ell_base_slices=16,
+                device=device)
+        return graphs[weights]
+
+    lanes = {"sources": sources}
+    s0 = int(sources[0])
+    out = {
+        "widest_path": (graph("uniform"), lambda: WidestPath(source=s0),
+                        None),
+        "random_walk_odds": (graph("odds"),
+                             lambda: RandomWalk(s0, "odds"), None),
+        "random_walk_logprob": (graph("logprob"),
+                                lambda: RandomWalk(s0, "logprob"), None),
+        "multi_min_add": (graph("uniform"), lambda: MultiSourceMonotone(
+            lanes=APPS_LANES, semiring="min_add"), lanes),
+        "multi_max_min": (graph("uniform"), lambda: MultiSourceMonotone(
+            lanes=APPS_LANES, semiring="max_min"), lanes),
+        "personalized_pagerank": (graph("pagerank"),
+                                  lambda: PersonalizedPageRank(
+                                      lanes=APPS_LANES, tolerance=1e-5),
+                                  lanes),
+    }
+    bedges, n_left, bn = bipartite_graph(1 << (APPS_LOG2 - 1),
+                                         1 << (APPS_LOG2 - 1), seed=5)
+    bg = build_partitioned_graph(bedges, bn,
+                                 hash_partition(bn, APPS_PARTITIONS, seed=1),
+                                 ell_base_slices=16, device=device)
+    out["bipartite_matching"] = (
+        bg, lambda: BipartiteMatching(seed=1),
+        {"is_left": bg.vertex_gid < n_left, "degree": bg.out_degree})
+    return out
+
+
+def _run_snapshot(es, iters):
+    """Numpy copies of what a run leaves: state, send/active, counters."""
+    from repro_torch.convert import to_numpy
+    return iters, to_numpy({"state": es.state, "send": es.send,
+                            "active": es.active, "counters": es.counters})
+
+
+def _tree_same(a, b):
+    import numpy as np
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_same(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_same(x, y)
+                                        for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        np.array_equal(a.reshape(-1).view(np.uint8),
+                       b.reshape(-1).view(np.uint8))
+
+
+def check_wcc_grid(graph, data):
+    """WCC through ``run_hybrid`` on the full-size grid against scipy's
+    connected components: labels exact (each component's smallest id)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    from repro_torch import WCC, unpack_vertex
+
+    edges, _, n = data
+    es, run = run_counted("apps", "wcc", "hybrid", graph, WCC())
+    got = unpack_vertex(graph, es.state["label"])
+    n_comp, comp = connected_components(
+        csr_matrix((np.ones(len(edges), np.int8), (edges[:, 0], edges[:, 1])),
+                   shape=(n, n)), directed=False)
+    first = np.full(n_comp, n, dtype=np.int64)
+    np.minimum.at(first, comp, np.arange(n))
+    exact = bool(np.array_equal(got, first[comp]))
+    say("apps", app="wcc", graph="grid", components=n_comp,
+        labels_exact=exact)
+    if not exact:
+        raise AssertionError("WCC labels differ from connected components")
+    return dict(components=int(n_comp), **run)
+
+
+def phase_apps(sssp_graph, sssp_data):
+    """WCC on the full-size grid against scipy, then every other app on
+    the card and on the host, bit for bit, through all three engines ×
+    {ell, dense}, with launches per kernel per app.  Fails unless
+    ``min_step`` ran under a semiring other than ``min_add`` and
+    ``pr_step`` ran with lanes."""
+    from repro_torch import run_am, run_bsp, run_hybrid
+    from repro_torch.kernels.common import LAUNCHES
+
+    runners = {"hybrid": run_hybrid, "bsp": run_bsp, "am": run_am}
+    t0 = time.perf_counter()
+    wcc = check_wcc_grid(sssp_graph, sssp_data)
+    card, host = apps_workloads("cuda"), apps_workloads("cpu")
+    rows = {}
+    for app, (graph, make, vdata) in card.items():
+        hgraph, _, hvdata = host[app]
+        launches = {k: 0 for k in LAUNCHES}
+        per_config = {}
+        t = time.perf_counter()
+        for engine in ("bsp", "am", "hybrid"):
+            for use_ell in (True, False):
+                es, run = run_counted("apps", app, engine, graph, make(),
+                                      use_ell=use_ell, vdata=vdata,
+                                      quiet=True)
+                got = _run_snapshot(es, run["iterations"])
+                want = _run_snapshot(*runners[engine](
+                    hgraph, make(), vdata=hvdata, use_ell=use_ell,
+                    device="cpu"))
+                same = got[0] == want[0] and _tree_same(got[1], want[1])
+                label = f"{engine}-{'ell' if use_ell else 'dense'}"
+                per_config[label] = dict(iterations=run["iterations"],
+                                         launches=run["launches"],
+                                         bit_identical=same)
+                for k, v in run["launches"].items():
+                    launches[k] += v
+                if not same:
+                    raise AssertionError(f"{app} {label}: card and host "
+                                         f"runs differ")
+        secs = time.perf_counter() - t
+        say("apps", app=app, configs=len(per_config), bit_identical=True,
+            iterations=json.dumps({k: v["iterations"] for k, v in
+                                   per_config.items()}).replace(" ", ""),
+            launches=json.dumps(launches).replace(" ", ""),
+            seconds=f"{secs:.1f}")
+        rows[app] = dict(launches=launches, configs=per_config, seconds=secs)
+    # min_step under max_min / min_mul / max_add, pr_step on lanes
+    other = [a for a in ("widest_path", "random_walk_odds",
+                         "random_walk_logprob", "multi_max_min")
+             if rows[a]["launches"]["min_step"]]
+    if not other:
+        raise AssertionError("min_step never ran under a semiring other "
+                             "than min_add")
+    if not rows["personalized_pagerank"]["launches"]["pr_step"]:
+        raise AssertionError("pr_step never ran with lanes")
+    secs = time.perf_counter() - t0
+    say("apps", phase_s=f"{secs:.1f}", min_step_semirings_beyond_min_add=
+        ",".join(other), pr_step_lane_launches=rows[
+            "personalized_pagerank"]["launches"]["pr_step"])
+    return dict(wcc_grid=wcc, apps=rows, phase_s=secs)
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     smi = phase_device()
     import torch
     from repro_torch import SSSP, IncrementalPageRank
@@ -819,8 +1160,10 @@ def main() -> int:
     pr_graph, pr_data, pr_build_s = rmat_pagerank_graph()
 
     sssp_prog, pr_prog = SSSP(source=0), IncrementalPageRank(tolerance=PR_TOL)
-    sssp_es, sssp_run = run_main("sssp", sssp_graph, sssp_prog)
-    pr_es, pr_run = run_main("pagerank", pr_graph, pr_prog)
+    sssp_es, sssp_run = run_counted("main", "sssp", "hybrid", sssp_graph,
+                                    sssp_prog)
+    pr_es, pr_run = run_counted("main", "pagerank", "hybrid", pr_graph,
+                                pr_prog)
     launches = {k: sssp_run["launches"][k] + pr_run["launches"][k]
                 for k in KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
@@ -836,6 +1179,10 @@ def main() -> int:
         sssp=phase_profile("sssp", sssp_graph, SSSP(source=0), 2),
         pagerank=phase_profile("pagerank", pr_graph,
                                IncrementalPageRank(tolerance=PR_TOL), 5))
+    engines = phase_engines(sssp_graph, sssp_es, sssp_run, pr_graph, pr_run,
+                            pr_data)
+    del pr_es
+    apps = phase_apps(sssp_graph, sssp_data)
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -858,8 +1205,10 @@ def main() -> int:
                        pagerank=dict(host_build_s=pr_build_s,
                                      oracle_max_abs_err=pr_err, **pr_run),
                        kernel_cases=report, kernels=kernels,
-                       profiles=profiles), f, indent=1)
+                       profiles=profiles, engines=engines, apps=apps), f,
+                  indent=1)
 
+    say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

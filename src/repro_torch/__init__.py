@@ -7,17 +7,25 @@ The three Pallas kernels are hand-written CUDA kernels under ``csrc/``,
 built with ``nvcc`` for ``sm_90a`` at first use; on CPU tensors their
 wrappers run the plain PyTorch versions.
 
-Main path: ``build_partitioned_graph`` -> ``run_hybrid`` for SSSP and
-incremental PageRank.  Entry points place tensors on ``cuda`` unless the
-caller passes ``device="cpu"``.
+``build_partitioned_graph`` -> ``run_hybrid`` (GraphHP), ``run_bsp``
+(Hama) or ``run_am`` (AM-Hama), over the ELL kernels or the dense
+gather/segment path, for every app of ``repro.core.apps``.  Entry points
+place tensors on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from repro_torch.core.apps import (SSSP, IncrementalPageRank,
-                                   pagerank_edge_weights)
+from repro_torch.core.apps import (SSSP, WCC, BipartiteMatching,
+                                   IncrementalPageRank, MultiSourceMonotone,
+                                   PersonalizedPageRank, RandomWalk,
+                                   WidestPath, pagerank_edge_weights,
+                                   random_walk_edge_weights)
+from repro_torch.core.engine_am import run_am
+from repro_torch.core.engine_bsp import run_bsp
 from repro_torch.core.engine_hybrid import run_hybrid
 from repro_torch.core.graph import (PartitionedGraph, build_partitioned_graph,
                                     unpack_vertex)
 
-__all__ = ["SSSP", "IncrementalPageRank", "pagerank_edge_weights",
-           "run_hybrid", "PartitionedGraph", "build_partitioned_graph",
-           "unpack_vertex"]
+__all__ = ["SSSP", "IncrementalPageRank", "WCC", "BipartiteMatching",
+           "WidestPath", "RandomWalk", "MultiSourceMonotone",
+           "PersonalizedPageRank", "pagerank_edge_weights",
+           "random_walk_edge_weights", "run_bsp", "run_am", "run_hybrid",
+           "PartitionedGraph", "build_partitioned_graph", "unpack_vertex"]

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.core.runtime import EngineState
 from repro_torch.core.vertex_program import VertexProgram
-from repro_torch.device import resolve_device
+from repro_torch.device import check_graph_device
 from repro_torch.exec.driver import run_engine
 from repro_torch.exec.iteration import hybrid_iteration, init_hybrid
 from repro_torch.exec.local_phase import fused_step_fn
@@ -56,8 +56,9 @@ def run_hybrid(
         max_iters: upper bound on global iterations.
         max_local_steps: per-iteration cap on local pseudo-supersteps
             (with rollback semantics for the fused kernels).
-        use_ell: deliver through the sliced-ELL kernels.  Must stay True
-            in this slice: the dense path is not ported yet.
+        use_ell: deliver through the sliced-ELL kernels where the program
+            qualifies; ``False`` forces the dense gather/segment path
+            (identical results and counters).
         collect_metrics: maintain the paper's message counters.
         device: where the run happens — ``cuda`` unless ``"cpu"`` is
             passed; the graph must already live there.
@@ -72,11 +73,7 @@ def run_hybrid(
         RuntimeError: CUDA asked for (the default) and absent.
         ValueError: the graph lives on another device.
     """
-    device = resolve_device(device)
-    if graph.device != device and not (
-            device.type == graph.device.type == "cuda" and device.index is None):
-        raise ValueError(f"graph lives on {graph.device}, run asked for "
-                         f"{device}")
+    check_graph_device(graph, device)
     policy = hybrid_policy(use_ell=use_ell, collect_metrics=collect_metrics,
                            max_local_steps=max_local_steps)
     ctx = run_engine(graph, prog, policy, vdata, max_iters=max_iters)

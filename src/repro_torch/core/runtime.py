@@ -1,19 +1,19 @@
-"""Shared execution primitives of the hybrid engine, the PyTorch counterpart
-of ``repro.core.runtime``:
+"""Shared execution primitives of the three engines (Hama / AM-Hama /
+GraphHP), the PyTorch counterpart of ``repro.core.runtime``:
 
   ``exchange``     gather exported out-states across the partition cut
                    (the once-per-iteration communication),
-  ``deliver``      generate + combine messages along the local or remote
-                   edge set into the per-vertex pending inboxes, through
-                   the sliced-ELL ``ell_spmv`` kernel,
+  ``deliver``      generate + combine messages along all, the local or the
+                   remote edges into the per-vertex pending inboxes —
+                   semiring channels through the sliced-ELL ``ell_spmv``
+                   kernel, the rest through the dense gather/segment path,
   ``apply_phase``  run the vertex program on a masked vertex set, consuming
                    pending inboxes (Pregel reactivation rules).
 
 All primitives run on partition-major tensors ``(P, ...)`` with every
-partition on one device.  This slice carries the ELL delivery path only:
-channels that would need the reference's dense gather/segment path raise
-``NotImplementedError``, as do the distributed ``gather_table`` hook and
-the ``wire_dtype`` quantized exchange.
+partition on one device.  Not ported: the distributed ``gather_table``
+hook, the ``wire_dtype`` quantized exchange and the reference's
+``use_halo=False`` delivery.
 """
 
 from __future__ import annotations
@@ -24,13 +24,16 @@ from typing import Any
 import torch
 
 from repro_torch.core.graph import EllSlice, PartitionedGraph
-from repro_torch.core.vertex_program import Channel, StepInfo, VertexProgram
+from repro_torch.core.vertex_program import (Channel, SegmentPlan, StepInfo,
+                                             VertexProgram, combine_segments,
+                                             segment_plan, segment_sum)
 from repro_torch.kernels.common import SEMIRINGS, maximum, minimum
 
 __all__ = ["Counters", "EngineState", "init_state", "exchange", "deliver",
            "apply_phase", "merge_inbox", "quiescent", "gather_per_partition",
            "ell_channels", "ell_f32_exact", "ell_slices", "slice_flat",
-           "ell_combine_bins", "ell_send_accounting", "ell_group_accounting"]
+           "ell_combine_bins", "ell_send_accounting", "ell_group_accounting",
+           "DensePlan", "dense_plan"]
 
 
 def _map(fn, *trees: dict) -> dict:
@@ -143,10 +146,21 @@ def merge_inbox(ch: Channel, a, b):
         out = tuple(minimum(x, y) for x, y in zip(pa, pb))
     elif ch.combiner == "max":
         out = tuple(maximum(x, y) for x, y in zip(pa, pb))
+    elif ch.combiner == "lexmin":
+        a_lt_b = _lex_lt(pa, pb)
+        out = tuple(torch.where(a_lt_b, x, y) for x, y in zip(pa, pb))
     else:
-        raise NotImplementedError(
-            f"combiner {ch.combiner!r} is not ported yet")
+        raise ValueError(ch.combiner)
     return out, has
+
+
+def _lex_lt(pa, pb):
+    lt = torch.zeros(pa[0].shape, dtype=torch.bool, device=pa[0].device)
+    eq = torch.ones(pa[0].shape, dtype=torch.bool, device=pa[0].device)
+    for x, y in zip(pa, pb):
+        lt = torch.logical_or(lt, torch.logical_and(eq, x < y))
+        eq = torch.logical_and(eq, x == y)
+    return torch.logical_or(lt, eq)  # ties keep a
 
 
 def ell_f32_exact(ch: Channel, payload_bound: int) -> bool:
@@ -341,11 +355,108 @@ def _ell_deliver(graph, prog, chs, es, pending, delivered, collect_metrics,
     return pending, delivered, net, net_local, mem
 
 
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """Flat per-edge indices of the block-ragged edge family, computed once
+    per graph: the edge family is B block rows of ``P // B`` consecutive
+    partitions side by side, and ``edge_part`` recovers each slot's
+    absolute partition, from which the source-table and destination
+    indices follow."""
+
+    src: torch.Tensor        # (E,) int64 into the (P * (Vp + H),) table
+    dst: torch.Tensor        # (E,) int64 into the (P * Vp,) inboxes
+    dst_plan: SegmentPlan    # stable sort of ``dst``: the sum fold order
+    grp_plan: SegmentPlan    # stable sort of the flat (B * Gp,) group ids
+
+
+def dense_plan(graph: PartitionedGraph) -> DensePlan:
+    """The graph's :class:`DensePlan`, built at its first dense delivery
+    and kept on the graph."""
+    plan = graph.__dict__.get("_dense_plan")
+    if plan is None:
+        p, vp = graph.n_partitions, graph.vp
+        bsz = graph.edge_src.shape[0]
+        dev = graph.device
+        rows = torch.arange(bsz, dtype=torch.int64, device=dev)[:, None]
+        epart = graph.edge_part.long() + rows * (p // bsz)
+        dst = (epart * vp + graph.edge_dst.long()).reshape(-1)
+        grp = (graph.edge_group.long() + rows * graph.gp).reshape(-1)
+        plan = DensePlan(
+            src=(epart * (vp + graph.hp) + graph.edge_src.long()).reshape(-1),
+            dst=dst, dst_plan=segment_plan(dst, p * vp),
+            grp_plan=segment_plan(grp, bsz * graph.gp))
+        graph.__dict__["_dense_plan"] = plan
+    return plan
+
+
+def _dense_deliver(graph, prog, chs, es, pending, delivered, collect_metrics,
+                   edges: str):
+    """Dense gather/segment delivery for ``chs`` along ``edges``: every
+    edge slot gathers its source's out-state and send flag from the
+    concat(out, halo_out) table, the channel's ``emit`` makes the
+    messages, and :func:`combine_segments` folds them per destination.
+    Counters as the reference's: one network (remote) or local message
+    per (source-partition, destination) combine group with a valid edge,
+    every valid local edge an in-memory message."""
+    p, vp = es.send.shape
+    plan = dense_plan(graph)
+    eshape = tuple(graph.edge_src.shape)
+    cat = lambda a, b: torch.cat([a, b], dim=1)
+
+    def gather(leaf):
+        flat = leaf.reshape((-1,) + tuple(leaf.shape[2:]))
+        return flat.index_select(0, plan.src).reshape(
+            eshape + tuple(leaf.shape[2:]))
+
+    out_src = _map(lambda a, b: gather(cat(a, b)), es.out, es.halo_out)
+    send_e = gather(cat(es.send, es.halo_send))
+    if edges == "all":
+        sel = graph.edge_mask
+    elif edges == "local":
+        sel = torch.logical_and(graph.edge_mask, graph.edge_local)
+    elif edges == "remote":
+        sel = torch.logical_and(graph.edge_mask,
+                                torch.logical_not(graph.edge_local))
+    else:
+        raise ValueError(edges)
+    base_valid = torch.logical_and(sel, send_e)
+
+    dev = es.send.device
+    net = torch.zeros((), dtype=torch.int64, device=dev)
+    net_local = torch.zeros((), dtype=torch.int64, device=dev)
+    mem = torch.zeros((), dtype=torch.int64, device=dev)
+    for ch in chs:
+        payloads, valid = prog.emit(ch, out_src, graph.edge_w,
+                                    graph.edge_src_gid, graph.edge_dst_gid)
+        valid = torch.logical_and(valid, base_valid)
+        valid_flat = valid.reshape(-1)
+        comb, has = combine_segments(
+            ch, tuple(x.reshape((-1,) + tuple(x.shape[2:]))
+                      for x in payloads),
+            valid_flat, plan.dst, p * vp, plan=plan.dst_plan)
+        has = has.reshape(p, vp)
+        fresh = (tuple(x.reshape((p, vp) + tuple(x.shape[1:]))
+                       for x in comb), has)
+        pending[ch.name] = merge_inbox(ch, pending[ch.name], fresh)
+        # a destination's partition is its edge's partition
+        delivered = torch.logical_or(delivered, torch.any(has, dim=1))
+        if not collect_metrics:
+            continue
+        grp_sent = segment_sum(valid_flat.to(torch.int32), plan.grp_plan) > 0
+        grp_sent = torch.logical_and(grp_sent.reshape(graph.group_mask.shape),
+                                     graph.group_mask)
+        net += torch.logical_and(grp_sent, graph.group_remote).sum()
+        net_local += torch.logical_and(
+            grp_sent, torch.logical_not(graph.group_remote)).sum()
+        mem += torch.logical_and(valid, graph.edge_local).sum()
+    return pending, delivered, net, net_local, mem
+
+
 def deliver(
     graph: PartitionedGraph,
     prog: VertexProgram,
     es: EngineState,
-    edges: str,                  # 'local' | 'remote'
+    edges: str,                  # 'all' | 'local' | 'remote'
     use_ell: bool = True,
     collect_metrics: bool = True,
 ) -> tuple[EngineState, torch.Tensor]:
@@ -356,26 +467,28 @@ def deliver(
     per (source-partition, destination-vertex) group), local ones as
     in-memory messages.  ``collect_metrics=False`` skips the accounting.
 
-    Only the kernel path is ported: every channel must ride the ELL
-    layouts (:func:`ell_channels`); anything needing the reference's dense
-    gather/segment path ('all' deliveries, ``use_ell=False``, channels
-    without a semiring, the reference's ``use_halo=False``) raises
-    ``NotImplementedError``.
+    ``use_ell`` sends the channels of a 'local' or 'remote' delivery that
+    can ride the ELL layouts (:func:`ell_channels`) through the kernels;
+    the other channels — and every channel of an 'all' delivery — take
+    the dense gather/segment path, in the same call.
     """
     kernel_chs = ell_channels(graph, prog, es.out, es.send, edges) \
         if use_ell and edges in ("local", "remote") else []
     dense_chs = [ch for ch in prog.channels if ch not in kernel_chs]
-    if dense_chs:
-        raise NotImplementedError(
-            f"channels {[ch.name for ch in dense_chs]} need the dense "
-            f"delivery path (edges={edges!r}, use_ell={use_ell}), which is "
-            f"not ported yet")
 
     dev = es.send.device
+    pending = dict(es.pending)
     delivered = torch.zeros((es.send.shape[0],), dtype=torch.bool, device=dev)
-    pending, delivered, net, net_local, mem = _ell_deliver(
-        graph, prog, kernel_chs, es, dict(es.pending), delivered,
-        collect_metrics, edges)
+    net = torch.zeros((), dtype=torch.int64, device=dev)
+    net_local = torch.zeros((), dtype=torch.int64, device=dev)
+    mem = torch.zeros((), dtype=torch.int64, device=dev)
+    for path, chs in ((_ell_deliver, kernel_chs),
+                      (_dense_deliver, dense_chs)):
+        if chs:
+            pending, delivered, nt, nl, mm = path(
+                graph, prog, chs, es, pending, delivered, collect_metrics,
+                edges)
+            net, net_local, mem = net + nt, net_local + nl, mem + mm
 
     c = es.counters
     counters = dataclasses.replace(

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "check_graph_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -21,3 +21,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
     return dev
+
+
+def check_graph_device(graph, device: str | torch.device | None
+                       ) -> torch.device:
+    """An engine's device check: ``device`` resolved as above, and the
+    graph must live there (a bare ``cuda`` matches any CUDA index)."""
+    device = resolve_device(device)
+    if graph.device != device and not (
+            device.type == graph.device.type == "cuda" and device.index is None):
+        raise ValueError(f"graph lives on {graph.device}, run asked for "
+                         f"{device}")
+    return device

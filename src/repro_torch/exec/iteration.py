@@ -1,12 +1,14 @@
-"""The GraphHP global iteration, the PyTorch counterpart of the hybrid half
-of ``repro.exec.iteration``.
+"""The superstep bodies behind every run path, the PyTorch counterpart of
+``repro.exec.iteration``.
 
-:func:`hybrid_iteration` is one unit of progress — exchange, remote
-delivery, the global phase on boundary vertices, the local phase — over
-the runtime primitives (``exchange`` / ``deliver`` / ``apply_phase``).  The
-executor (:mod:`repro_torch.exec.driver`) iterates it; nothing here loops
-to quiescence.  The Hama and AM-Hama superstep bodies wait for a later
-slice of the port.
+Each function here is one unit of progress — a Hama superstep
+(:func:`bsp_superstep`), an AM-Hama superstep (:func:`am_superstep`), or a
+GraphHP global iteration (:func:`hybrid_iteration`) — over the same
+runtime primitives (``exchange`` / ``deliver`` / ``apply_phase``),
+differing only in how often they synchronize and how far the local phase
+runs between synchronizations.  The executor
+(:mod:`repro_torch.exec.driver`) iterates whichever body its policy names;
+nothing here loops to quiescence.
 """
 
 from __future__ import annotations
@@ -18,12 +20,13 @@ import torch
 
 from repro_torch.core.graph import PartitionedGraph
 from repro_torch.core.runtime import (EngineState, apply_phase, deliver,
-                                      exchange, init_state)
+                                      ell_channels, exchange, init_state)
 from repro_torch.core.vertex_program import StepInfo, VertexProgram
 from repro_torch.exec.local_phase import local_phase
 
-__all__ = ["hybrid_iteration", "init_hybrid", "reset_export",
-           "exchange_phase", "hybrid_remote_delivery", "hybrid_global_phase",
+__all__ = ["bsp_superstep", "am_superstep", "hybrid_iteration",
+           "init_hybrid", "reset_export", "exchange_phase", "bsp_delivery",
+           "bsp_compute", "hybrid_remote_delivery", "hybrid_global_phase",
            "hybrid_local"]
 
 
@@ -35,10 +38,52 @@ def reset_export(prog: VertexProgram, es: EngineState) -> EngineState:
         export_send=torch.zeros_like(es.export_send))
 
 
+def _deliver_split(graph, prog, es, use_ell, collect_metrics):
+    """Superstep delivery: remote + local halves when a channel can ride
+    the ELL layouts (combine groups never mix local and remote edges, so
+    counters are unchanged), else one dense 'all' pass."""
+    if use_ell and ell_channels(graph, prog, es.out, es.send):
+        es, _ = deliver(graph, prog, es, edges="remote", use_ell=True,
+                        collect_metrics=collect_metrics)
+        es, _ = deliver(graph, prog, es, edges="local", use_ell=True,
+                        collect_metrics=collect_metrics)
+    else:
+        es, _ = deliver(graph, prog, es, edges="all",
+                        collect_metrics=collect_metrics)
+    return es
+
+
+def _bump(es: EngineState, pseudo: bool) -> EngineState:
+    """Count one global iteration (and, for a superstep, one
+    pseudo-superstep in every partition)."""
+    c = es.counters
+    c = dataclasses.replace(c, iterations=c.iterations + 1)
+    if pseudo:
+        c = dataclasses.replace(c,
+                                pseudo_supersteps=c.pseudo_supersteps + 1)
+    return dataclasses.replace(es, counters=c)
+
+
 def exchange_phase(graph, prog, es) -> EngineState:
-    """The one communication of a global iteration: gather export buffers
-    through the halo plan, then clear them."""
+    """The one communication of a superstep / global iteration: gather
+    export buffers through the halo plan, then clear them."""
     return reset_export(prog, exchange(graph, es))
+
+
+def bsp_delivery(graph, prog, es, use_ell: bool = True,
+                 collect_metrics: bool = True) -> EngineState:
+    """Hama's delivery: every edge (remote + local halves on the ELL path,
+    one dense 'all' pass otherwise)."""
+    return _deliver_split(graph, prog, es, use_ell, collect_metrics)
+
+
+def bsp_compute(graph, prog, es, vdata) -> EngineState:
+    """Hama's bulk Compute() over all (active ∨ messaged) vertices, plus
+    the superstep counter bump."""
+    info = StepInfo(superstep=es.counters.iterations + 1, pseudo_step=0,
+                    phase="superstep")
+    es = apply_phase(graph, prog, es, graph.vertex_mask, info, vdata)
+    return _bump(es, pseudo=True)
 
 
 def hybrid_remote_delivery(graph, prog, es, use_ell: bool = True,
@@ -75,9 +120,56 @@ def hybrid_local(graph, prog, es, vdata, max_local_steps: int = 100_000,
     es = local_phase(graph, prog, es, vdata, it,
                      max_local_steps=max_local_steps, use_ell=use_ell,
                      collect_metrics=collect_metrics)
-    c = es.counters
-    return dataclasses.replace(
-        es, counters=dataclasses.replace(c, iterations=c.iterations + 1))
+    return _bump(es, pseudo=False)
+
+
+def bsp_superstep(
+    graph: PartitionedGraph,
+    prog: VertexProgram,
+    es: EngineState,
+    vdata: Any,
+    use_ell: bool = True,
+    collect_metrics: bool = True,
+) -> EngineState:
+    """One Hama superstep: exchange -> deliver(all) -> Compute(all).
+
+    With ``use_ell`` the delivery splits into remote + local halves so each
+    half can run through its ELL layout; counters are unchanged, float
+    'sum' inboxes may differ from the dense pass in the last bit (another
+    fold order)."""
+    es = exchange_phase(graph, prog, es)
+    es = bsp_delivery(graph, prog, es, use_ell, collect_metrics)
+    return bsp_compute(graph, prog, es, vdata)
+
+
+def am_superstep(
+    graph: PartitionedGraph,
+    prog: VertexProgram,
+    es: EngineState,
+    vdata: Any,
+    use_ell: bool = True,
+    collect_metrics: bool = True,
+) -> EngineState:
+    """One AM-Hama superstep: Hama's cadence + in-memory delivery between
+    two ordered half-blocks A|B of each partition's slots (the Grace
+    mechanism, vectorized — see :mod:`repro_torch.core.engine_am`)."""
+    es = exchange_phase(graph, prog, es)
+    es = bsp_delivery(graph, prog, es, use_ell, collect_metrics)
+
+    slot = torch.arange(graph.vp, device=graph.device)[None, :]
+    first = slot < graph.vp // 2
+    half_a = torch.logical_and(graph.vertex_mask, first)
+    half_b = torch.logical_and(graph.vertex_mask, torch.logical_not(first))
+
+    info = StepInfo(superstep=es.counters.iterations + 1, pseudo_step=0,
+                    phase="superstep")
+    es = apply_phase(graph, prog, es, half_a, info, vdata)
+    es, _ = deliver(graph, prog, es, edges="local", use_ell=use_ell,
+                    collect_metrics=collect_metrics)   # A's, in memory
+    es = apply_phase(graph, prog, es, half_b, info, vdata)
+    # es.send is now B's senders only: A's in-partition messages were
+    # delivered above, its cross-partition ones ride the export buffer
+    return _bump(es, pseudo=True)
 
 
 def hybrid_iteration(

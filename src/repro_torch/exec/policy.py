@@ -1,20 +1,26 @@
-"""Engines as policy objects (the hybrid one, in this slice of the port).
+"""Engines as policy objects.
 
-An :class:`EnginePolicy` is an ``init`` building the starting
-:class:`~repro_torch.core.runtime.EngineState` and a ``step`` advancing it
-by one global iteration; the driver (:func:`repro_torch.exec.driver.
-run_engine`) owns the loop, the halt rule and the hook points.
+GraphHP, Hama and AM-Hama share one execution skeleton — initialize, then
+iterate a synchronization-delimited step until quiescence — and differ
+only in what one step does.  An :class:`EnginePolicy` is an ``init``
+building the starting :class:`~repro_torch.core.runtime.EngineState` and a
+``step`` advancing it by one superstep or global iteration; the driver
+(:func:`repro_torch.exec.driver.run_engine`) owns the loop, the halt rule
+and the hook points.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Callable
+from typing import Any, Callable
 
-from repro_torch.exec.iteration import hybrid_iteration, init_hybrid
+from repro_torch.core.runtime import init_state
+from repro_torch.exec.iteration import (am_superstep, bsp_superstep,
+                                        hybrid_iteration, init_hybrid)
 
-__all__ = ["EnginePolicy", "hybrid_policy"]
+__all__ = ["EnginePolicy", "bsp_policy", "am_policy", "hybrid_policy",
+           "POLICIES", "make_policy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +38,24 @@ class EnginePolicy:
     step: Callable
 
 
+def bsp_policy(use_ell: bool = True,
+               collect_metrics: bool = True) -> EnginePolicy:
+    """Hama: one exchange + one bulk Compute() per superstep."""
+    return EnginePolicy(
+        name="bsp", init=_state_init,
+        step=partial(_bsp_step, use_ell=use_ell,
+                     collect_metrics=collect_metrics))
+
+
+def am_policy(use_ell: bool = True,
+              collect_metrics: bool = True) -> EnginePolicy:
+    """AM-Hama: Hama's cadence + in-memory same-superstep local delivery."""
+    return EnginePolicy(
+        name="am", init=_state_init,
+        step=partial(_am_step, use_ell=use_ell,
+                     collect_metrics=collect_metrics))
+
+
 def hybrid_policy(use_ell: bool = True, collect_metrics: bool = True,
                   max_local_steps: int = 100_000) -> EnginePolicy:
     """GraphHP: one exchange per global iteration, then pseudo-supersteps
@@ -44,9 +68,36 @@ def hybrid_policy(use_ell: bool = True, collect_metrics: bool = True,
                      use_ell=use_ell, collect_metrics=collect_metrics))
 
 
+# module-level step adapters (not closures), so the partials stay picklable
+def _state_init(graph, prog, vdata):
+    return init_state(graph, prog, vdata)
+
+
+def _bsp_step(graph, prog, es, vdata, **kw):
+    return bsp_superstep(graph, prog, es, vdata, **kw)
+
+
+def _am_step(graph, prog, es, vdata, **kw):
+    return am_superstep(graph, prog, es, vdata, **kw)
+
+
 def _hybrid_step(graph, prog, es, vdata, **kw):
     return hybrid_iteration(graph, prog, es, vdata, **kw)
 
 
 def _hybrid_init(graph, prog, vdata, **kw):
     return init_hybrid(graph, prog, vdata, **kw)
+
+
+POLICIES: dict[str, Callable[..., EnginePolicy]] = {
+    "bsp": bsp_policy,
+    "am": am_policy,
+    "hybrid": hybrid_policy,
+}
+
+
+def make_policy(name: str, **knobs: Any) -> EnginePolicy:
+    """Build a policy by engine name ('bsp' | 'am' | 'hybrid')."""
+    if name not in POLICIES:
+        raise KeyError(f"unknown engine {name!r}; have {sorted(POLICIES)}")
+    return POLICIES[name](**knobs)

@@ -93,19 +93,26 @@ def fold_block(k: int) -> int:
     return min(FOLD_SLICES, k)
 
 
-def slot_fold(n_slots: int, slot_value, combine, ident_like):
+def slot_fold(n_slots: int, slot_values, combine, ident: float):
     """The reference kernels' fold: sequential within each ``bk``-slot
     block (pad slots past ``n_slots`` contribute the identity, as Pallas
     pads a ragged last block with masked slots), block partials folded
-    left to right.  ``slot_value(k)`` gives slot k's (R[, L]) operand."""
+    left to right.  ``slot_values(ks)`` gives the (R, m[, L]) operands of
+    the slots ``ks``, a strided slice of the slot axis.  Every block folds
+    its k-th slot in the same step, so a row of B blocks costs
+    ``bk + B - 1`` combines of (R, B[, L]) tiles instead of ``B * bk`` of
+    (R[, L]) ones: the same operations in the same order per element."""
     bk = fold_block(n_slots)
-    acc = None
-    for k0 in range(0, n_slots, bk):
-        part = None
-        for k in range(k0, k0 + bk):
-            v = slot_value(k) if k < n_slots else ident_like()
-            part = v if part is None else combine(part, v)
-        acc = part if acc is None else combine(acc, part)
+    last = n_slots - (-(-n_slots // bk) - 1) * bk   # slots of the last block
+    part = None
+    for k in range(bk):
+        v = slot_values(slice(k, n_slots, bk))
+        if k >= last:                       # the last block is past its end
+            v = torch.cat([v, torch.full_like(v[:, :1], ident)], dim=1)
+        part = v if part is None else combine(part, v)
+    acc = part[:, 0]
+    for b in range(1, part.shape[1]):
+        acc = combine(acc, part[:, b])
     return acc
 
 

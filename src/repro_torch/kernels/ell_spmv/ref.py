@@ -15,15 +15,13 @@ from repro_torch.kernels.common import SEMIRINGS, slot_fold
 def ell_spmv_ref(idx, val, msk, x, *, semiring: str = "add_mul"):
     """y[r] = ⊕_k msk[r,k] ? val[r,k] ⊗ x[idx[r,k]] : ident, (R,) or (R, L)."""
     combine, times, ident = SEMIRINGS[semiring]
-    col = (lambda a: a[:, None]) if x.dim() == 2 else (lambda a: a)
-    shape = idx.shape[:1] + x.shape[1:]
-
-    def slot(k):
-        v = times(col(val[:, k]), x[idx[:, k]])
-        return torch.where(col(msk[:, k]), v, ident)
-
-    fill = lambda: torch.full(shape, ident, dtype=torch.float32,
-                              device=x.device)
+    col = (lambda a: a[..., None]) if x.dim() == 2 else (lambda a: a)
     if idx.shape[1] == 0:
-        return fill()
-    return slot_fold(idx.shape[1], slot, combine, fill)
+        return torch.full(idx.shape[:1] + x.shape[1:], ident,
+                          dtype=torch.float32, device=x.device)
+
+    def slots(ks):
+        v = times(col(val[:, ks]), x[idx[:, ks]])
+        return torch.where(col(msk[:, ks]), v, ident)
+
+    return slot_fold(idx.shape[1], slots, combine, ident)

@@ -17,17 +17,16 @@ def fused_min_step_ref(idx, val, msk, x, send, xrow, extra, *,
     x' = xrow ⊕ d_in, send' = improves(d_in, xrow)."""
     combine, times, ident = SEMIRINGS[semiring]
     improves = semiring_improves(semiring)
-    col = (lambda a: a[:, None]) if x.dim() == 2 else (lambda a: a)
+    col = (lambda a: a[..., None]) if x.dim() == 2 else (lambda a: a)
 
-    def slot(k):
-        s = idx[:, k]
-        cand = times(x[s], col(val[:, k]))
-        return torch.where(torch.logical_and(col(msk[:, k]), send[s]),
+    def slots(ks):
+        s = idx[:, ks]
+        cand = times(x[s], col(val[:, ks]))
+        return torch.where(torch.logical_and(col(msk[:, ks]), send[s]),
                            cand, ident)
 
-    fill = lambda: torch.full(xrow.shape, ident, dtype=torch.float32,
-                              device=x.device)
-    acc = slot_fold(idx.shape[1], slot, combine, fill) \
-        if idx.shape[1] else fill()
+    acc = slot_fold(idx.shape[1], slots, combine, ident) \
+        if idx.shape[1] else torch.full(xrow.shape, ident,
+                                        dtype=torch.float32, device=x.device)
     d_in = combine(acc, extra)
     return combine(xrow, d_in), d_in, improves(d_in, xrow)

@@ -14,17 +14,16 @@ def fused_pr_step_ref(idx, val, msk, delta, send, rank, extra, *,
     """-> (rank', d_in, send') with
     d_in = Σ_k msk ? (float32(damping)·val)·(send[s] ? delta[s] : 0) : 0
     (+ extra), rank' = rank + d_in, send' = d_in > float32(tol)."""
-    col = (lambda a: a[:, None]) if delta.dim() == 2 else (lambda a: a)
+    col = (lambda a: a[..., None]) if delta.dim() == 2 else (lambda a: a)
     dval = f32(damping) * val
 
-    def slot(k):
-        s = idx[:, k]
+    def slots(ks):
+        s = idx[:, ks]
         contrib = torch.where(send[s], delta[s], 0.0)
-        return torch.where(col(msk[:, k]), col(dval[:, k]) * contrib, 0.0)
+        return torch.where(col(msk[:, ks]), col(dval[:, ks]) * contrib, 0.0)
 
-    fill = lambda: torch.zeros(rank.shape, dtype=torch.float32,
-                               device=rank.device)
-    acc = slot_fold(idx.shape[1], slot, torch.add, fill) \
-        if idx.shape[1] else fill()
+    acc = slot_fold(idx.shape[1], slots, torch.add, 0.0) \
+        if idx.shape[1] else torch.zeros(rank.shape, dtype=torch.float32,
+                                         device=rank.device)
     d_in = acc + extra
     return rank + d_in, d_in, d_in > f32(tol)

@@ -235,9 +235,12 @@ def test_cuda_run_matches_cpu_run(app):
 
 
 def test_unported_paths_raise():
+    from repro_torch.core.runtime import slice_flat
+
     _, graph = _graphs("sssp")
-    with pytest.raises(NotImplementedError, match="dense delivery"):
-        run_hybrid(graph, SSSP(source=0), use_ell=False, device="cpu")
+    # per-block ELL views belong to the distributed step, not ported yet
+    with pytest.raises(NotImplementedError, match="per-block ELL views"):
+        slice_flat(graph.local_ell[0], graph, graph.n_partitions // 2)
     with pytest.raises(ValueError, match="graph lives on"):
         run_hybrid(graph, SSSP(source=0), device="meta")
     if not torch.cuda.is_available():
