@@ -71,6 +71,27 @@ Phases, one line each (any failure exits non-zero and prints no result):
               counters bit for bit; launches per kernel per app.  Fails
               unless ``min_step`` ran under a semiring other than
               ``min_add`` and ``pr_step`` ran with lanes.
+10. io       — the grid's edge list staged to disk, spilled to a ``.ghp``
+              under its tile labels and built out-of-core onto the card
+              (``build_partitioned_graph_from_path``, default chunk size):
+              seconds for stage, spill and build apart, the host's peak
+              RSS and the card's peak memory; its ``graph_digest`` must
+              equal the in-memory build's, and ``run_hybrid`` on it the
+              ``main`` run's distances and counters bit for bit.
+11. ft       — on both full-size graphs: (a) ``run_hybrid_ft`` stopped at
+              ``max_iters`` (10 of SSSP's 20 iterations, 25 of PageRank's
+              50) and resumed from its checkpoint, (b) one call with
+              worker 1 of 4 killed by ``FaultPlan.kill_at`` and
+              ``checkpoint_every=3``, exactly one recovery; each must end
+              on the ``main`` run's final state and counters bit for bit
+              (NaN by position), with ``ell_spmv`` and ``min_step`` (SSSP)
+              and ``pr_step`` (PageRank) launched inside the runs.  Prints
+              checkpoint bytes, snapshot / write / restore seconds,
+              iterations lost and the ``graph_digest`` seconds.  Then
+              WidestPath on the apps phase's R-MAT 2^16: its ``.ghp``
+              resized P = 16 -> 9 (``resize_ghp``), a checkpoint
+              re-sharded (``resize_checkpoint``) and restored elastically
+              must reach the uninterrupted run's fixed point bit for bit.
 
 Every phase prints its wall time.
 
@@ -233,18 +254,22 @@ def phase_build():
     return secs
 
 
-def grid_sssp_graph():
+def grid_tiles(n):
+    """The grid's geographic labels: GRID_TILES x GRID_TILES square tiles."""
     import numpy as np
+    vid = np.arange(n)
+    tile = GRID_SIDE // GRID_TILES
+    return ((vid // GRID_SIDE // tile) * GRID_TILES
+            + (vid % GRID_SIDE) // tile).astype(np.int32)
+
+
+def grid_sssp_graph():
     from repro_torch import build_partitioned_graph
     from repro_torch.data.graphs import grid_graph
 
     t = time.perf_counter()
     edges, w, n = grid_graph(GRID_SIDE, GRID_SIDE, seed=0)
-    vid = np.arange(n)
-    tile = GRID_SIDE // GRID_TILES
-    part = ((vid // GRID_SIDE // tile) * GRID_TILES
-            + (vid % GRID_SIDE) // tile).astype(np.int32)
-    graph = build_partitioned_graph(edges, n, part, weights=w)
+    graph = build_partitioned_graph(edges, n, grid_tiles(n), weights=w)
     sync()
     secs = time.perf_counter() - t
     say("graphs", app="sssp", V=n, E=len(edges), P=graph.n_partitions,
@@ -978,18 +1003,11 @@ APPS_PARTITIONS = 16
 APPS_LANES = 4
 
 
-def apps_workloads(device):
-    """``{app: (graph, make_prog, vdata)}`` of the apps phase on ``device``:
-    R-MAT 2^16 (avg degree 8, hash partition, P = 16, a 16-slot ELL base
-    bin, so hubs spill as on the PageRank graph) in each app's weight
-    convention, and ``bipartite_graph(2^15, 2^15)`` for the matching.
-    Everything is made from fixed seeds, so both devices get the same."""
+def apps_inputs():
+    """The apps phase's R-MAT 2^16 from fixed seeds: ``(edges, n, part,
+    uniform weights, lane sources)``."""
     import numpy as np
-    from repro_torch import (BipartiteMatching, MultiSourceMonotone,
-                             PersonalizedPageRank, RandomWalk, WidestPath,
-                             build_partitioned_graph, pagerank_edge_weights,
-                             random_walk_edge_weights)
-    from repro_torch.data.graphs import bipartite_graph, rmat_graph
+    from repro_torch.data.graphs import rmat_graph
     from repro_torch.partition import hash_partition
 
     edges, n = rmat_graph(1 << APPS_LOG2, avg_degree=8, seed=2)
@@ -999,6 +1017,23 @@ def apps_workloads(device):
     senders = np.flatnonzero(np.bincount(edges[:, 0], minlength=n))
     sources = np.random.default_rng(4).choice(senders, APPS_LANES,
                                               replace=False)
+    return edges, n, part, uniform, sources
+
+
+def apps_workloads(device):
+    """``{app: (graph, make_prog, vdata)}`` of the apps phase on ``device``:
+    R-MAT 2^16 (avg degree 8, hash partition, P = 16, a 16-slot ELL base
+    bin, so hubs spill as on the PageRank graph) in each app's weight
+    convention, and ``bipartite_graph(2^15, 2^15)`` for the matching.
+    Everything is made from fixed seeds, so both devices get the same."""
+    from repro_torch import (BipartiteMatching, MultiSourceMonotone,
+                             PersonalizedPageRank, RandomWalk, WidestPath,
+                             build_partitioned_graph, pagerank_edge_weights,
+                             random_walk_edge_weights)
+    from repro_torch.data.graphs import bipartite_graph
+    from repro_torch.partition import hash_partition
+
+    edges, n, part, uniform, sources = apps_inputs()
     graphs = {}
 
     def graph(weights):
@@ -1148,6 +1183,346 @@ def phase_apps(sssp_graph, sssp_data):
     return dict(wcc_grid=wcc, apps=rows, phase_s=secs)
 
 
+# --------------------------------------------------------------------------
+# io: the grid from disk, built out-of-core onto the card
+# --------------------------------------------------------------------------
+
+def _host_rss_gib():
+    """This process's resident set now (``VmRSS``), GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+class _PeakRss:
+    """The peak of this process's resident set over a ``with`` block,
+    sampled every 20 ms by a thread (the card's machine keeps no
+    ``VmHWM`` that a block could reset)."""
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = _host_rss_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, _host_rss_gib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, _host_rss_gib())
+
+
+def _timed_digest(graph):
+    from repro_torch.io import graph_digest
+    t = time.perf_counter()
+    digest = graph_digest(graph)
+    return digest, time.perf_counter() - t
+
+
+def phase_io(sssp_graph, sssp_data, sssp_es, sssp_run):
+    """The grid's edge list staged to disk, spilled to a ``.ghp`` under its
+    tile labels, and built out-of-core onto the card at the default chunk
+    size; its ``graph_digest`` must equal the in-memory build's, and
+    ``run_hybrid`` on it must give the ``main`` run's distances and
+    counters bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch import SSSP
+    from repro_torch.io import (build_partitioned_graph_from_path,
+                                degree_pass, open_edge_source, spill_to_ghp)
+    from repro_torch.io.stage import stage_arrays
+
+    t0 = time.perf_counter()
+    edges, w, n = sssp_data
+    want, digest_s = _timed_digest(sssp_graph)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd, \
+            _PeakRss() as rss:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        card_before = torch.cuda.memory_allocated() / 2**30
+        t = time.perf_counter()
+        staged = os.path.join(wd, "staged")
+        stage_arrays(staged, edges, weights=w, n_vertices=n)
+        stage_s = time.perf_counter() - t
+        t = time.perf_counter()
+        source = open_edge_source(staged)
+        _, _, _, in_deg = degree_pass(source)
+        ghp = os.path.join(wd, "grid.ghp")
+        sg = spill_to_ghp(source, grid_tiles(n), n, in_deg, ghp)
+        spill_s = time.perf_counter() - t
+        t = time.perf_counter()
+        graph = build_partitioned_graph_from_path(ghp, device="cuda",
+                                                  workdir=wd)
+        sync()
+        build_s = time.perf_counter() - t
+        card_peak = torch.cuda.max_memory_allocated() / 2**30
+        ghp_bytes = sum(os.path.getsize(os.path.join(r, f))
+                        for r, _, fs in os.walk(ghp) for f in fs)
+    got, ooc_digest_s = _timed_digest(graph)
+    say("io", graph="sssp grid", V=n, E=len(edges),
+        shards=sg.n_partitions, ghp_bytes=ghp_bytes,
+        stage_s=f"{stage_s:.3f}", spill_s=f"{spill_s:.3f}",
+        build_s=f"{build_s:.3f}", host_rss_before_GiB=f"{rss.start:.2f}",
+        host_peak_rss_GiB=f"{rss.peak:.2f}",
+        card_before_GiB=f"{card_before:.2f}",
+        card_peak_GiB=f"{card_peak:.2f}",
+        digest_s=f"{digest_s:.3f}", digest_equal=got == want)
+    if got != want:
+        raise AssertionError("out-of-core grid: graph_digest differs from "
+                             "the in-memory build's")
+    es, run = run_counted("io", "sssp", "hybrid", graph, SSSP(source=0))
+    same = _same(es.state["dist"], sssp_es.state["dist"]) and \
+        run["counters"] == sssp_run["counters"]
+    say("io", app="sssp", dist_and_counters_bit_identical_to_main=same)
+    if not same:
+        raise AssertionError("out-of-core grid: run_hybrid differs from the "
+                             "main run")
+    del es, graph
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    say("io", phase_s=f"{secs:.1f}")
+    return dict(stage_s=stage_s, spill_s=spill_s, build_s=build_s,
+                ghp_bytes=ghp_bytes, host_rss_before_GiB=rss.start,
+                host_peak_rss_GiB=rss.peak, card_before_GiB=card_before,
+                card_peak_GiB=card_peak,
+                digest_s=digest_s, ooc_digest_s=ooc_digest_s,
+                digest=got, run=run, phase_s=secs)
+
+
+# --------------------------------------------------------------------------
+# ft: kill and resume, injected kill, elastic resume
+# --------------------------------------------------------------------------
+
+# global iteration at which (a) stops the first call, and the tick at which
+# (b) kills worker 1 of 4 (detected two ticks later, past the last
+# checkpoint of checkpoint_every=3, so one iteration is lost)
+FT_PLAN = {"sssp": (10, 9), "pagerank": (25, 24)}
+
+
+def _ft_counted(fn):
+    """``fn()`` with launch and host-read counts zeroed just before and
+    read just after, and its wall seconds."""
+    from repro_torch.exec.syncs import host_reads, reset_host_reads
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    sync()
+    reset_launches()
+    reset_host_reads()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t, dict(LAUNCHES), host_reads()
+
+
+def _state_same(got, want):
+    """Every leaf of an engine state against a numpy snapshot of another:
+    bit for bit, NaN by position."""
+    import numpy as np
+    from repro_torch.convert import to_numpy
+
+    def walk(a, b):
+        if isinstance(b, dict):
+            return a.keys() == b.keys() and all(walk(a[k], b[k]) for k in b)
+        if isinstance(b, list):
+            return len(a) == len(b) and all(walk(x, y) for x, y in zip(a, b))
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype.kind == "f":
+            nan = np.isnan(b)
+            if not np.array_equal(np.isnan(a), nan):
+                return False
+            a, b = a[~nan], b[~nan]
+        return np.array_equal(a.reshape(-1).view(np.uint8),
+                              b.reshape(-1).view(np.uint8))
+
+    return walk(to_numpy(got), want)
+
+
+def ft_app(app, graph, make, want, want_iters, base):
+    """(a) ``run_hybrid_ft`` stopped at ``max_iters=k`` and run again with
+    ``resume=True``; (b) one call with worker 1 of 4 killed and
+    ``checkpoint_every=3``.  Both must end on ``want`` (a numpy snapshot of
+    the ``main`` run's final state) bit for bit, counters included."""
+    from repro_torch.checkpoint import (AsyncCheckpointer, latest_checkpoint,
+                                        load_checkpoint, read_manifest)
+    from repro_torch.exec.iteration import init_hybrid
+    from repro_torch.ft import FaultInjector, FaultPlan, run_hybrid_ft
+
+    k, kill_tick = FT_PLAN[app]
+    ck = AsyncCheckpointer(os.path.join(base, app, "a"), keep=3,
+                           codec="raw")
+    r1, s1, l1, h1 = _ft_counted(lambda: run_hybrid_ft(
+        graph, make(), checkpointer=ck, max_iters=k))
+    path = latest_checkpoint(ck.base)
+    step_a = read_manifest(path)["step"]    # before the resume's GC drops it
+    template = init_hybrid(graph, make(), None)
+    t = time.perf_counter()
+    load_checkpoint(path, template)
+    sync()
+    restore_s = time.perf_counter() - t
+    del template
+    r2, s2, l2, h2 = _ft_counted(lambda: run_hybrid_ft(
+        graph, make(), checkpointer=ck, resume=True))
+    ck.close()
+    lost_a = r1.iterations - step_a if r2.resumed_from == path else None
+    ck_a = ck.written
+    written_a = dict(checkpoints=ck_a, iterations_lost=lost_a,
+                     checkpoint_bytes=ck.bytes_written,
+                     snapshot_s=ck.save_seconds, write_s=ck.write_seconds)
+    same_a = _state_same(r2.es, want) and r2.iterations == want_iters
+    launches_a = {name: l1[name] + l2[name] for name in l1}
+    say("ft", app=app, run="kill-resume", killed_at=r1.iterations,
+        resumed_from=os.path.basename(r2.resumed_from or ""),
+        iterations=r2.iterations, seconds=f"{s1:.3f}+{s2:.3f}",
+        checkpoints=ck_a, checkpoint_bytes=ck.bytes_written,
+        snapshot_s=f"{ck.save_seconds:.3f}",
+        write_s=f"{ck.write_seconds:.3f}", restore_s=f"{restore_s:.3f}",
+        iterations_lost=lost_a, host_syncs=h1 + h2,
+        launches=json.dumps(launches_a).replace(" ", ""),
+        bit_identical_to_main=same_a)
+    del r1, r2
+    ck = AsyncCheckpointer(os.path.join(base, app, "b"), keep=3,
+                           codec="raw")
+    inj = FaultInjector(FaultPlan.kill_at(kill_tick, worker=1), n_workers=4)
+    rb, sb, lb, hb = _ft_counted(lambda: run_hybrid_ft(
+        graph, make(), checkpointer=ck, checkpoint_every=3, n_workers=4,
+        injector=inj))
+    ck.close()
+    same_b = _state_same(rb.es, want) and rb.iterations == want_iters
+    ev = rb.recoveries[0] if len(rb.recoveries) == 1 else None
+    say("ft", app=app, run="injected-kill", recoveries=len(rb.recoveries),
+        tick=ev and ev.tick, restored_iteration=ev and ev.restored_iteration,
+        iterations_lost=ev and ev.iterations_lost,
+        restore_s=f"{ev.restore_seconds:.3f}" if ev else None,
+        bytes_read=ev and ev.bytes_read, seconds=f"{sb:.3f}",
+        checkpoints=ck.written, checkpoint_bytes=ck.bytes_written,
+        snapshot_s=f"{ck.save_seconds:.3f}",
+        write_s=f"{ck.write_seconds:.3f}", host_syncs=hb,
+        launches=json.dumps(lb).replace(" ", ""),
+        bit_identical_to_main=same_b)
+    out = dict(
+        kill_resume=dict(killed_at=k, seconds=[s1, s2], **written_a,
+                         restore_s=restore_s, launches=launches_a,
+                         host_syncs=h1 + h2, bit_identical=same_a),
+        injected_kill=dict(recoveries=len(rb.recoveries),
+                           event=_event_dict(ev), seconds=sb,
+                           checkpoints=ck.written,
+                           checkpoint_bytes=ck.bytes_written,
+                           snapshot_s=ck.save_seconds,
+                           write_s=ck.write_seconds, launches=lb,
+                           host_syncs=hb, bit_identical=same_b))
+    if not (same_a and same_b):
+        raise AssertionError(f"ft {app}: a resumed or recovered run "
+                             f"differs from the main run")
+    if lost_a != 0 or ck_a != want_iters:
+        raise AssertionError(f"ft {app}: the resume lost {lost_a} "
+                             f"iterations and {ck_a} checkpoints were "
+                             f"written, want 0 and {want_iters}")
+    if ev is None:
+        raise AssertionError(f"ft {app}: {len(rb.recoveries)} recoveries, "
+                             f"want exactly one")
+    need = ("ell_spmv", "min_step") if app == "sssp" else ("pr_step",)
+    for label, counts in (("kill-resume", launches_a),
+                          ("injected-kill", lb)):
+        idle = [name for name in need if not counts[name]]
+        if idle:
+            raise AssertionError(f"ft {app} {label}: never launched {idle}")
+    return out
+
+
+def _event_dict(obj):
+    """A ``RecoveryEvent`` as JSON-ready values."""
+    import dataclasses
+    return None if obj is None else {
+        k: (list(v) if isinstance(v, tuple) else
+            {str(a): b for a, b in v.items()} if isinstance(v, dict) else v)
+        for k, v in dataclasses.asdict(obj).items()}
+
+
+def ft_elastic(base):
+    """WidestPath on the apps phase's R-MAT 2^16: its ``.ghp`` (P = 16)
+    resized to P = 9 with ``resize_ghp``, a checkpoint of the P = 16 run
+    re-sharded with ``resize_checkpoint``, ``elastic_restore`` on the P = 9
+    graph, run to quiescence: the fixed point must equal the uninterrupted
+    P = 16 run's, vertex by vertex, bit for bit."""
+    import numpy as np
+    from repro_torch import WidestPath, unpack_vertex
+    from repro_torch.exec.driver import run_engine
+    from repro_torch.exec.policy import hybrid_policy
+    from repro_torch.ft import elastic_restore, run_hybrid_ft
+    from repro_torch.io import build_from_sharded, load_graph, save_graph
+    from repro_torch.io.resize import resize_checkpoint, resize_ghp
+
+    t = time.perf_counter()
+    edges, n, part, uniform, sources = apps_inputs()
+    make = lambda: WidestPath(source=int(sources[0]))      # noqa: E731
+    src, dst = os.path.join(base, "wp16.ghp"), os.path.join(base, "wp9.ghp")
+    save_graph(src, edges, n, part, weights=uniform, positions=True)
+    g16 = build_from_sharded(load_graph(src), ell_base_slices=16)
+    ref = run_hybrid_ft(g16, make())
+    ck16 = os.path.join(base, "wp16.ck")
+    run_hybrid_ft(g16, make(), ckpt_dir=ck16, max_iters=3)
+    sg9 = resize_ghp(src, dst, 9)
+    g9 = build_from_sharded(sg9, ell_base_slices=16)
+    digest9, _ = _timed_digest(g9)
+    ck9 = resize_checkpoint(ck16, os.path.join(base, "wp9.ck"), part,
+                            sg9.part, digest9)
+    es, it = elastic_restore(ck9, g9, make(), None, part, sg9.part,
+                             expect_digest=digest9)
+    ctx = run_engine(g9, make(), hybrid_policy(), es=es)
+    got = unpack_vertex(g9, ctx.es.state["cap"])
+    want = unpack_vertex(g16, ref.es.state["cap"])
+    same = got.dtype == want.dtype and np.array_equal(
+        got.view(np.uint32), want.view(np.uint32))
+    secs = time.perf_counter() - t
+    say("ft", app="widest_path", run="elastic 16->9", restored_iteration=it,
+        iterations=f"{ref.iterations}->{ctx.iteration}",
+        fixed_point_bit_identical=same, seconds=f"{secs:.1f}")
+    if not same:
+        raise AssertionError("elastic resume: the P = 9 fixed point differs "
+                             "from the P = 16 run's")
+    return dict(restored_iteration=it, iterations=[ref.iterations,
+                                                   ctx.iteration],
+                bit_identical=same, seconds=secs)
+
+
+def phase_ft(sssp_graph, sssp_want, sssp_iters, pr_graph, pr_want,
+             pr_iters):
+    """Kill-and-resume and injected-kill recovery on both full-size graphs
+    (the in-memory R-MAT graph of ``graphs``), then the elastic resume."""
+    import tempfile
+    import torch
+    from repro_torch import SSSP, IncrementalPageRank
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        for app, graph, make, want, iters in (
+                ("sssp", sssp_graph, lambda: SSSP(source=0), sssp_want,
+                 sssp_iters),
+                ("pagerank", pr_graph,
+                 lambda: IncrementalPageRank(tolerance=PR_TOL), pr_want,
+                 pr_iters)):
+            _, digest_s = _timed_digest(graph)
+            out[app] = ft_app(app, graph, make, want, iters, wd)
+            out[app]["graph_digest_s"] = digest_s
+            say("ft", app=app, graph_digest_s=f"{digest_s:.3f}")
+            torch.cuda.empty_cache()
+        out["elastic"] = ft_elastic(wd)
+    secs = time.perf_counter() - t0
+    say("ft", phase_s=f"{secs:.1f}")
+    out["phase_s"] = secs
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1181,8 +1556,13 @@ def main() -> int:
                                IncrementalPageRank(tolerance=PR_TOL), 5))
     engines = phase_engines(sssp_graph, sssp_es, sssp_run, pr_graph, pr_run,
                             pr_data)
+    from repro_torch.convert import to_numpy
+    pr_want = to_numpy(pr_es)        # the ft phase's reference, on the host
     del pr_es
     apps = phase_apps(sssp_graph, sssp_data)
+    io = phase_io(sssp_graph, sssp_data, sssp_es, sssp_run)
+    ft = phase_ft(sssp_graph, to_numpy(sssp_es), sssp_run["iterations"],
+                  pr_graph, pr_want, pr_run["iterations"])
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -1205,8 +1585,8 @@ def main() -> int:
                        pagerank=dict(host_build_s=pr_build_s,
                                      oracle_max_abs_err=pr_err, **pr_run),
                        kernel_cases=report, kernels=kernels,
-                       profiles=profiles, engines=engines, apps=apps), f,
-                  indent=1)
+                       profiles=profiles, engines=engines, apps=apps,
+                       io=io, ft=ft), f, indent=1)
 
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))

@@ -8,22 +8,30 @@ side, one graph (or one engine state) feeds both packages, and
 
 Nothing here imports the reference: a structure crosses as nested plain
 values — dataclasses become dicts of their fields, tuples become lists,
-array leaves become numpy arrays, static fields stay Python values.
+array leaves become numpy arrays, static fields stay Python values.  An
+engine checkpoint crosses on disk: :func:`engine_state_from_checkpoint`
+reads one that either package wrote.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import (CheckpointError, _flatten_with_names,
+                                         _np_dtype, _unflatten,
+                                         latest_checkpoint,
+                                         load_checkpoint_arrays)
 from repro_torch.core.graph import EllSlice, PartitionedGraph
 from repro_torch.core.runtime import Counters, EngineState
 from repro_torch.device import resolve_device
 
-__all__ = ["to_numpy", "graph_from_numpy", "engine_state_from_numpy"]
+__all__ = ["to_numpy", "graph_from_numpy", "engine_state_from_numpy",
+           "engine_state_from_checkpoint"]
 
 
 def to_numpy(obj: Any) -> Any:
@@ -94,3 +102,43 @@ def engine_state_from_numpy(fields: Mapping, device=None) -> EngineState:
     counters = Counters(**{k: _tensor(v, device).to(torch.int64)
                            for k, v in fields["counters"].items()})
     return EngineState(counters=counters, **kw)
+
+
+def engine_state_from_checkpoint(path: str, like: EngineState, device=None
+                                 ) -> tuple[EngineState, int]:
+    """The port's ``EngineState`` on ``device`` from an engine checkpoint
+    written by either package — the reference's ``run_hybrid_ft`` or the
+    port's — and its iteration.  ``path`` is a ``step_*`` directory or a
+    base directory (its newest complete checkpoint is taken).  ``like`` is
+    the port's ``init_hybrid`` for the same graph and program: its leaf
+    names, shapes and dtypes are what the checkpoint must hold, except that
+    the reference's int32 counters widen to the port's int64.
+
+    Raises:
+        CheckpointError: no complete checkpoint, a corrupt blob, or leaves
+            that are not those of ``like``.
+    """
+    device = resolve_device(device)
+    if not os.path.exists(os.path.join(path, "manifest.json")):
+        found = latest_checkpoint(path)
+        if found is None:
+            raise CheckpointError(f"{path}: no complete checkpoint found")
+        path = found
+    arrs, manifest = load_checkpoint_arrays(path)
+    named = _flatten_with_names(like)
+    if list(arrs) != [name for name, _ in named]:
+        raise CheckpointError(
+            f"{path}: leaves {list(arrs)} are not those of the EngineState "
+            f"template {[name for name, _ in named]}")
+    out = []
+    for name, leaf in named:
+        a, want = arrs[name], _np_dtype(leaf)
+        widen = (name.startswith(".counters/") and a.dtype == np.int32
+                 and want == np.int64)
+        if tuple(a.shape) != tuple(leaf.shape) or (a.dtype != want
+                                                   and not widen):
+            raise CheckpointError(
+                f"{path}: leaf {name!r} is {a.dtype}{a.shape}, the "
+                f"EngineState template wants {want}{tuple(leaf.shape)}")
+        out.append(_tensor(a, device).to(leaf.dtype))
+    return _unflatten(like, iter(out)), int(manifest["step"])

@@ -673,8 +673,24 @@ def _finalize_graph(arrs: dict[str, np.ndarray],
     )
 
 
+#: Bytes of a read-only (memory-mapped) array copied to the device at a
+#: time: the out-of-core builder's finished arrays stay on disk and only
+#: this much of one is resident on the host while it moves.
+_COPY_BLOCK_BYTES = 64 << 20
+
+
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if a.flags.writeable:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # a read-only map of a spilled file (the out-of-core builder): a fresh
+    # tensor filled one block at a time, never aliasing the file
+    dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+    out = torch.empty(a.shape, dtype=dtype, device=device)
+    src, dst = np.ascontiguousarray(a).reshape(-1), out.view(-1)
+    step = max(1, _COPY_BLOCK_BYTES // a.itemsize)
+    for i in range(0, src.size, step):
+        dst[i:i + step].copy_(torch.from_numpy(np.array(src[i:i + step])))
+    return out
 
 
 def _ell_pick(e: dict[str, np.ndarray], negate: bool) -> dict[str, np.ndarray]:

@@ -11,7 +11,7 @@
 
 All return ``(edges (E,2) int64, n_vertices)`` (+ weights where meaningful).
 Deterministic under ``seed``.  A copy of ``repro.data.graphs`` (numpy
-only); the on-disk ``materialize`` helper waits for the port's I/O layer.
+only).
 """
 
 from __future__ import annotations
@@ -19,7 +19,21 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["grid_graph", "rmat_graph", "bipartite_graph", "geometric_graph",
-           "path_graph", "cycle_graph", "symmetrize", "ensure_no_dangling"]
+           "path_graph", "cycle_graph", "symmetrize", "ensure_no_dangling",
+           "materialize"]
+
+
+def materialize(path: str, kind: str, **params):
+    """Stage a synthetic graph on disk as a binary edge directory that the
+    ``repro_torch.io`` out-of-core pipeline (and ``python -m
+    repro_torch.io.convert``) consumes — how benchmarks put a 10^7-edge
+    R-MAT on disk once instead of re-synthesizing it per consumer.
+    ``kind`` is one of 'rmat' | 'grid' | 'geometric' | 'bipartite' |
+    'path' | 'cycle'; ``params`` pass through to the generator (plus
+    ``symmetrize=True``).  Returns the opened
+    :class:`repro_torch.io.StagedEdgeSource`."""
+    from repro_torch.io.stage import materialize as _materialize
+    return _materialize(path, kind, **params)
 
 
 def symmetrize(edges: np.ndarray) -> np.ndarray:

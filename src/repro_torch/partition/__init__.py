@@ -7,8 +7,9 @@
 
 All share one signature through :func:`make_partition`:
 ``(edges (E,2), n_vertices, n_partitions, seed) -> (V,) int32 labels``, and
-give the reference's labels for the same arguments.  The partition-quality
-report waits for a later slice of the port.
+give the reference's labels for the same arguments.
+:func:`~repro_torch.partition.quality.partition_report` scores any
+labeling with the numbers that predict GraphHP traffic.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from repro_torch.partition.seed import bfs_partition, hash_partition
 from repro_torch.partition.streaming import (fennel_partition,
                                              fennel_partition_csr)
 from repro_torch.partition.multilevel import multilevel_partition
+from repro_torch.partition.quality import PartitionReport, partition_report
 
 __all__ = [
     "hash_partition", "bfs_partition", "fennel_partition",
-    "fennel_partition_csr", "multilevel_partition", "PARTITIONERS",
+    "fennel_partition_csr", "multilevel_partition", "PartitionReport",
+    "partition_report", "PARTITIONERS",
     "make_partition",
 ]
 

@@ -9,6 +9,22 @@ import sys
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "src")
 
+# the graph I/O, checkpoint and fault-tolerance modules: each must be
+# found by the walk below, and import clean like the rest
+IO_FT_MODULES = (
+    "repro_torch.obs", "repro_torch.obs.clock",
+    "repro_torch.io", "repro_torch.io.readers", "repro_torch.io.format",
+    "repro_torch.io.stage", "repro_torch.io.digest",
+    "repro_torch.io.pipeline", "repro_torch.io.convert",
+    "repro_torch.io.resize",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+    "repro_torch.exec.checkpoint",
+    "repro_torch.ft", "repro_torch.ft.heartbeat", "repro_torch.ft.inject",
+    "repro_torch.ft.straggler", "repro_torch.ft.elastic",
+    "repro_torch.ft.driver",
+    "repro_torch.partition.quality",
+)
+
 _PROBE = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -19,9 +35,10 @@ for m in mods:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              or m.startswith("jax"))
-print(len(mods), bad)
-sys.exit(1 if bad or len(mods) < 25 else 0)
-"""
+missing = sorted(set(%r) - set(mods) - {"repro_torch"})
+print(len(mods), bad, missing)
+sys.exit(1 if bad or missing or len(mods) < 25 else 0)
+""" % (IO_FT_MODULES,)
 
 
 def _run(code, tmp_path):
