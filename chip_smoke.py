@@ -13,8 +13,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
               32,897), ``min_step`` (K = 7, 8, 16) and both ``pr_step``
               paths (K = 7, 8, 16, 300; aligned, one row and one element
               into a larger buffer) on synthetic tiles
-              against their plain versions: every semiring, (N,), (N, 4)
-              and (N, 6) frontiers,
+              against their plain versions: every semiring, (N,), (N, 4),
+              (N, 6) and (N, 16) frontiers,
               1 % / 50 % / 100 % occupancy and empty fold blocks between
               occupied ones, signed zeros, ±inf ties and NaN; bit-identical,
               NaN by position only.
@@ -44,7 +44,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
               ``library_device_ms``: a CUDA graph of a run of calls over
               copies of the operands, replayed), the plain version call by
               call, beside the bound the card's memory rate and float32
-              rate set for the same work.
+              rate set for the same work.  Also the serving shapes:
+              ``min_step`` and ``ell_spmv`` on the grid's base bin and
+              ``pr_step`` and ``ell_spmv`` (beside ``torch.sparse.mm`` with
+              a dense (N, 16) operand) on R-MAT's, all at L = 16.
 7. profile  — the first global iterations of each run again under
               ``torch.profiler``: device busy share and device time by
               kernel, ours and PyTorch's glue around them.
@@ -92,10 +95,44 @@ Phases, one line each (any failure exits non-zero and prints no result):
               resized P = 16 -> 9 (``resize_ghp``), a checkpoint
               re-sharded (``resize_checkpoint``) and restored elastically
               must reach the uninterrupted run's fixed point bit for bit.
+12. serve    — ``ServeEngine(lane_widths=(1, 4, 16))`` on both graphs:
+              16 grid sssp queries as one K = 16 batch (the source-0 lane
+              bit-identical to ``main``), a solo query (bit-identical to
+              its lane), ``stream()`` over 4 queries (each yield
+              bit-identical to ``run()``'s, in order of convergence), the
+              same 4 checkpointed, killed from ``on_iteration`` and resumed
+              by a fresh engine (bit-identical, one ``ResumeEvent``, the
+              checkpoint family deleted); 16 R-MAT ppr seeds as one K = 16
+              batch and one seed's K = 1 dispatch (bit-identical to its
+              lane).  Every sssp lane against scipy's Dijkstra (rtol
+              1e-4), every ppr lane against a personalized power iteration
+              (the ``oracle`` tolerances), both computed by spawned worker
+              processes beside the card's work.  Per batch: K, iterations,
+              seconds, queries/s, peak device memory, host syncs, launches
+              per kernel and those with L > 1; the persisted registry's
+              ``serve.compiles.<program>.K<K>`` must be 1 each.  Fails
+              unless every kernel launched with L > 1.  The same 16 ppr
+              seeds also go out at the program's default tolerance (1e-4)
+              and at 1e-5; their oracle errors are printed, not held to
+              the oracle's tolerance (Algorithm 5 keeps deltas at or below
+              the query's tolerance from propagating).
+13. obs      — ``run_engine`` with ``trace_hooks(Tracer())`` on both graphs
+              (state and counters bit-identical to ``main``, one superstep
+              span per iteration, span deltas summed equal to the
+              counters past init, the Chrome trace under ``build/``
+              against the schema of ``tests/test_obs.py``);
+              ``phased_run`` (ELL), hybrid on both and BSP on R-MAT, with
+              seconds per phase, barriers, exchange bytes and the
+              local-compute fraction, bit-identical to the fused engines;
+              ``run_hybrid_ft`` on the grid with a tracer, a registry and
+              one injected kill (one ``recovery`` span, the registry's
+              flags read back off the registry equal to the run's);
+              ``python -m repro_torch.obs.report`` in a subprocess, exit 0.
 
-Every phase prints its wall time.
+Every phase prints its wall time; the ``[done]`` line gives the seconds
+of each phase (``phase_s``), set-up and checks included.
 
-The second-to-last line is ``{"kernels": [...]}``, the line before it the
+The third-to-last line is ``{"kernels": [...]}``, the line after it the
 card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  A detailed report goes to
 ``build/chip_smoke_report.json``.
@@ -126,6 +163,10 @@ F32_OPS_PER_S = 67e12
 # operand bytes a timed run of graph-replayed calls cycles through: three
 # times the H100's 50 MB L2, so no call finds its operands there
 COLD_BYTES = 150_000_000
+
+# the serving layer's lane widths; its widest batch takes 16 queries
+SERVE_WIDTHS = (1, 4, 16)
+SERVE_LANES = SERVE_WIDTHS[-1]
 
 # (TPU kernel it replaces, CUDA source) per kernel
 KERNELS = {
@@ -433,12 +474,14 @@ def _same_nan(a, b):
 # from 33,792 rows on, four per warp the card holds), a block per row with
 # a ragged last fold block (300), the local hub bin's width, and 258 fold
 # blocks (more than the 256 a round holds, the last one slot wide).  Six
-# lanes take a second lane chunk of four.
-SWEEP_SPMV = ((7, 512, (0, 4)), (8, 512, (0, 4)), (16, 512, (0, 4)),
-              (128, 512, (0, 4, 6)), (128, 40000, (0, 4, 6)),
-              (300, 256, (0, 4, 6)), (7056, 32, (0, 4, 6)),
-              (32897, 8, (0, 6)))
+# lanes take a second lane chunk of four; sixteen, the serving layer's
+# widest batch, four chunks.
+SWEEP_SPMV = ((7, 512, (0, 4, 16)), (8, 512, (0, 4, 16)),
+              (16, 512, (0, 4, 16)), (128, 512, (0, 4, 6, 16)),
+              (128, 40000, (0, 4, 6, 16)), (300, 256, (0, 4, 6, 16)),
+              (7056, 32, (0, 4, 6, 16)), (32897, 8, (0, 6, 16)))
 SWEEP_MIN_STEP = ((7, 512), (8, 512), (16, 512))
+SWEEP_MIN_STEP_LANES = (0, 4, 16)
 # (K, rows, frontier lanes) of the pr_step tiles: the rows path
 # (K = 8 and 16 on an (N,) frontier, also over 600,001 rows: thousands of
 # warps of every fill) and the thread-per-(row, lane) path (K = 7 and 300 with its
@@ -446,8 +489,8 @@ SWEEP_MIN_STEP = ((7, 512), (8, 512), (16, 512))
 # multiples of 32.  Each tile also lies one row into a larger buffer
 # (still aligned at K = 8 and 16) and one element in (misaligned: the
 # thread path).
-SWEEP_PR_STEP = ((7, 517, (0, 4, 6)), (8, 517, (0, 4, 6)),
-                 (16, 517, (0, 4, 6)), (300, 517, (0, 4, 6)),
+SWEEP_PR_STEP = ((7, 517, (0, 4, 6, 16)), (8, 517, (0, 4, 6, 16)),
+                 (16, 517, (0, 4, 6, 16)), (300, 517, (0, 4, 6, 16)),
                  (8, 600_001, (0,)), (16, 600_001, (0,)))
 SWEEP_OFFSETS = ("none", "row", "element")
 # from this width on the plain version of a sweep tile runs on the CPU: it
@@ -537,8 +580,9 @@ def _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, offset):
 
 def phase_sweep():
     """Each kernel path against its plain version on synthetic tiles: every
-    semiring, (N,), (N, 4) and (N, 6) frontiers (``SWEEP_SPMV``,
-    ``SWEEP_PR_STEP``), 1 %, 50 %, 100 % occupancy and
+    semiring, (N,), (N, 4), (N, 6) and (N, 16) frontiers (``SWEEP_SPMV``,
+    ``SWEEP_MIN_STEP_LANES``, ``SWEEP_PR_STEP``), 1 %, 50 %, 100 %
+    occupancy and
     all-padding blocks between occupied ones, signed zeros and ±inf ties;
     ``pr_step`` also on tiles offset into a larger buffer
     (``SWEEP_OFFSETS``).  Bit-identical, NaN by position only
@@ -573,7 +617,7 @@ def phase_sweep():
                 bad.append(f"ell_spmv K={k} {fill} {mode} L={lanes} {sr}")
     for (k, rows), fill, mode, lanes in (
             (kr, f, m, L) for kr in SWEEP_MIN_STEP for f in SWEEP_FILLS
-            for m in ("zeros", "infs") for L in (0, 4)):
+            for m in ("zeros", "infs") for L in SWEEP_MIN_STEP_LANES):
         idx, msk = _sweep_tile(gen, rows, k, fill, rows)
         xshape = (rows, lanes) if lanes else (rows,)
         val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
@@ -610,28 +654,29 @@ def phase_sweep():
 
 
 def _bound_ms(msk, idx, rows_bytes, ops_per_slot, flag=None,
-              x_is_row=False):
+              x_is_row=False, lanes=1):
     """Least time for the work these inputs need, over the HBM rate: each
     mask byte, the idx/val words of occupied slots, ``rows_bytes`` of row
     operands and outputs per row, and the frontier entries of the distinct
     sources of occupied slots.  A plain product reads a 4-byte value per
-    source.  A fused step (``flag``: its send flags) reads a flag byte per
-    source and the value only where the flag is set; where the value
-    vector is also the row operand (``x_is_row``, the engine's
-    ``xrow = x``) those words are already counted per row.  Against that,
-    the per-slot operations over the float32 rate."""
+    source and lane.  A fused step (``flag``: its send flags, one per
+    source and lane) reads a flag byte per source and lane and the value
+    only where the flag is set; where the value vector is also the row
+    operand (``x_is_row``, the engine's ``xrow = x``) those words are
+    already counted per row.  Against that, the per-slot operations of
+    every lane over the float32 rate."""
     import torch
     nnz = int(msk.sum())
     src = torch.unique(idx[msk])
     rows = idx.shape[0]
     nbytes = msk.numel() + 8 * nnz + rows_bytes * rows
     if flag is None:
-        nbytes += 4 * src.numel()
+        nbytes += 4 * lanes * src.numel()
     else:
-        nbytes += src.numel()
+        nbytes += lanes * src.numel()
         if not x_is_row:
             nbytes += 4 * int(flag[src.long()].sum())
-    ops = ops_per_slot * nnz
+    ops = ops_per_slot * nnz * lanes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -798,6 +843,48 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
                 # widest spill bin, launched every pseudo-superstep
                 if app == "pagerank" and edges == "local" and not s.dense:
                     timed["ell_spmv"] = row
+
+    # --- the serving shapes: (N, 16) frontiers on the base bins ----------
+    L = SERVE_LANES
+    s = sssp_graph.local_ell[0]
+    _, idx, msk = slice_flat(s, sssp_graph, sssp_graph.n_partitions)
+    val = s.val.reshape(-1, s.kb)
+    xl = torch.rand((idx.shape[0], L), generator=gen, device="cuda") * 100
+    sl = rand_send(xl.shape)
+    timed["min_step_L16"] = case(
+        "min_step", f"sssp local base {tuple(idx.shape)}, L={L}",
+        fused_min_step, (idx, val, msk, xl, sl, xl,
+                         torch.full_like(xl, float("inf"))),
+        fused_min_step_ref,
+        _bound_ms(msk, idx, 17 * L, 2, flag=sl, x_is_row=True, lanes=L))
+    timed["ell_spmv_L16_grid"] = case(
+        "ell_spmv", f"sssp local base {tuple(idx.shape)}, L={L}",
+        lambda *a: ell_spmv(*a, semiring="min_add"), (idx, val, msk, xl),
+        lambda *a: ell_spmv_ref(*a, semiring="min_add"),
+        _bound_ms(msk, idx, 4 * L, 2, lanes=L))
+    del xl, sl
+    s = pr_graph.local_ell[0]
+    _, idx, msk = slice_flat(s, pr_graph, pr_graph.n_partitions)
+    val = pr_prog.ell_edge_values(pr_prog.channels[0], s.val).reshape(
+        -1, s.kb)
+    dl = torch.rand((idx.shape[0], L), generator=gen, device="cuda") * 1e-3
+    rl = torch.rand((idx.shape[0], L), generator=gen, device="cuda")
+    sl = rand_send(dl.shape)
+    timed["pr_step_L16"] = case(
+        "pr_step", f"pagerank local base {tuple(idx.shape)}, L={L}",
+        lambda *a: fused_pr_step(*a, **pr_kw),
+        (idx, val, msk, dl, sl, rl, torch.zeros_like(dl)),
+        lambda *a: fused_pr_step_ref(*a, **pr_kw),
+        _bound_ms(msk, idx, 17 * L, 3, flag=sl, lanes=L))
+    xd = torch.where(sl, dl, 0.0).contiguous()
+    timed["ell_spmv_L16_rmat"] = case(
+        "ell_spmv", f"pagerank local base {tuple(idx.shape)}, L={L}",
+        lambda *a: ell_spmv(*a, semiring="add_mul"), (idx, val, msk, xd),
+        lambda *a: ell_spmv_ref(*a, semiring="add_mul"),
+        _bound_ms(msk, idx, 4 * L, 2, lanes=L),
+        library=torch.sparse.mm,
+        lib_ops=(_csr_library(idx, val, msk, xd.shape[0]), xd))
+    del dl, rl, sl, xd
 
     # --- lanes and semirings: a small (N, L) sweep -------------------------
     s = sssp_graph.local_ell[0]
@@ -1092,7 +1179,7 @@ def _tree_same(a, b):
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(_tree_same(x, y)
                                         for x, y in zip(a, b))
-    a, b = np.asarray(a), np.asarray(b)
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
     return a.dtype == b.dtype and a.shape == b.shape and \
         np.array_equal(a.reshape(-1).view(np.uint8),
                        b.reshape(-1).view(np.uint8))
@@ -1307,7 +1394,7 @@ def phase_io(sssp_graph, sssp_data, sssp_es, sssp_run):
 FT_PLAN = {"sssp": (10, 9), "pagerank": (25, 24)}
 
 
-def _ft_counted(fn):
+def _counted(fn):
     """``fn()`` with launch and host-read counts zeroed just before and
     read just after, and its wall seconds."""
     from repro_torch.exec.syncs import host_reads, reset_host_reads
@@ -1359,7 +1446,7 @@ def ft_app(app, graph, make, want, want_iters, base):
     k, kill_tick = FT_PLAN[app]
     ck = AsyncCheckpointer(os.path.join(base, app, "a"), keep=3,
                            codec="raw")
-    r1, s1, l1, h1 = _ft_counted(lambda: run_hybrid_ft(
+    r1, s1, l1, h1 = _counted(lambda: run_hybrid_ft(
         graph, make(), checkpointer=ck, max_iters=k))
     path = latest_checkpoint(ck.base)
     step_a = read_manifest(path)["step"]    # before the resume's GC drops it
@@ -1369,7 +1456,7 @@ def ft_app(app, graph, make, want, want_iters, base):
     sync()
     restore_s = time.perf_counter() - t
     del template
-    r2, s2, l2, h2 = _ft_counted(lambda: run_hybrid_ft(
+    r2, s2, l2, h2 = _counted(lambda: run_hybrid_ft(
         graph, make(), checkpointer=ck, resume=True))
     ck.close()
     lost_a = r1.iterations - step_a if r2.resumed_from == path else None
@@ -1392,7 +1479,7 @@ def ft_app(app, graph, make, want, want_iters, base):
     ck = AsyncCheckpointer(os.path.join(base, app, "b"), keep=3,
                            codec="raw")
     inj = FaultInjector(FaultPlan.kill_at(kill_tick, worker=1), n_workers=4)
-    rb, sb, lb, hb = _ft_counted(lambda: run_hybrid_ft(
+    rb, sb, lb, hb = _counted(lambda: run_hybrid_ft(
         graph, make(), checkpointer=ck, checkpoint_every=3, n_workers=4,
         injector=inj))
     ck.close()
@@ -1523,16 +1610,595 @@ def phase_ft(sssp_graph, sssp_want, sssp_iters, pr_graph, pr_want,
     return out
 
 
+# --------------------------------------------------------------------------
+# serve: K-lane graph queries through ServeEngine on both full-size graphs
+# --------------------------------------------------------------------------
+
+SERVE_STREAM = 4          # queries of the streamed and the killed batch
+SERVE_CKPT_EVERY = 2      # the killed batch's checkpoint cadence
+PPR_ORACLE_ITERS = 60     # personalized power iteration: 0.85^60 < 6e-5
+# the ppr queries' tolerance: a lane's mass is 1 and Algorithm 5 keeps
+# every delta at or below the tolerance from propagating, so a lane's
+# error follows its tolerance; the held queries use 1e-7, and the
+# program's default (None: 1e-4) and 1e-5 are run and printed beside it
+SERVE_PPR_TOL = 1e-7
+PPR_TOL_PRINTED = (None, 1e-5)
+ORACLE_WORKERS = 4
+
+
+def serve_sources():
+    """The grid's 16 serving sources from a fixed seed; the first is vertex
+    0, the ``main`` run's source."""
+    import numpy as np
+    n = GRID_SIDE * GRID_SIDE
+    grid = [0] + np.random.default_rng(11).choice(
+        np.arange(1, n), SERVE_LANES - 1, replace=False).tolist()
+    return grid
+
+
+def _oracle_csr(path, rows, cols, vals, n):
+    """An n x n CSR matrix saved for the oracle workers."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    m = csr_matrix((vals, (rows, cols)), shape=(n, n))
+    np.savez(path, data=m.data, indices=m.indices, indptr=m.indptr,
+             n=np.int64(n))
+
+
+def _load_csr(path):
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    z = np.load(path)
+    n = int(z["n"])
+    return csr_matrix((z["data"], z["indices"], z["indptr"]), shape=(n, n))
+
+
+def _oracle_dijkstra(csr_path, sources, out_path):
+    """Worker: scipy's Dijkstra from ``sources`` -> (len, n) float64."""
+    import numpy as np
+    from scipy.sparse.csgraph import dijkstra
+    np.save(out_path, dijkstra(_load_csr(csr_path), indices=list(sources)))
+    return out_path
+
+
+def _oracle_ppr(csr_path, seeds, iters, out_path):
+    """Worker: personalized power iteration, one column per seed:
+    ``R = 0.15 E + A R`` with ``A = 0.85 / outdeg(src)`` at (dst, src),
+    ``PPR_ORACLE_ITERS`` times -> (n, len) float64."""
+    import numpy as np
+    a = _load_csr(csr_path)
+    e = np.zeros((a.shape[0], len(seeds)))
+    e[list(seeds), np.arange(len(seeds))] = 0.15
+    r = e.copy()
+    for _ in range(iters):
+        r = e + a @ r
+    np.save(out_path, r)
+    return out_path
+
+
+def start_oracles(pool, wd, sssp_data, pr_data, grid_src, ppr_seeds):
+    """Submit the serving phase's oracles to ``pool`` (spawned worker
+    processes, so they run beside the card's work): Dijkstra for the 16
+    grid sources and the personalized power iteration for the 16 R-MAT
+    seeds, four lanes a worker.  Returns the futures of each."""
+    import numpy as np
+    edges, w, n = sssp_data
+    grid_csr = os.path.join(wd, "grid_csr.npz")
+    _oracle_csr(grid_csr, edges[:, 0], edges[:, 1], w.astype(np.float64),
+                n)
+    pe, _, pn = pr_data
+    deg = np.maximum(np.bincount(pe[:, 0], minlength=pn), 1)
+    rmat_csr = os.path.join(wd, "rmat_csr.npz")
+    _oracle_csr(rmat_csr, pe[:, 1], pe[:, 0], 0.85 / deg[pe[:, 0]], pn)
+    chunk = SERVE_LANES // ORACLE_WORKERS
+    dij = [pool.submit(_oracle_dijkstra, grid_csr, grid_src[i:i + chunk],
+                       os.path.join(wd, f"dij{i}.npy"))
+           for i in range(0, SERVE_LANES, chunk)]
+    ppr = [pool.submit(_oracle_ppr, rmat_csr, ppr_seeds[i:i + chunk],
+                       PPR_ORACLE_ITERS, os.path.join(wd, f"ppr{i}.npy"))
+           for i in range(0, SERVE_LANES, chunk)]
+    return dij, ppr
+
+
+def _serve_counted(label, fn, n_queries, K):
+    """``fn()`` (a dispatch) counted as ``_counted`` counts, with its
+    launches with L > 1 apart and the card's peak memory."""
+    import torch
+    from repro_torch.kernels.common import LANE_LAUNCHES
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs, launches, syncs = _counted(fn)
+    row = dict(batch=label, K=K, queries=n_queries, seconds=secs,
+               queries_per_s=n_queries / secs,
+               peak_device_GiB=torch.cuda.max_memory_allocated() / 2**30,
+               host_syncs=syncs, launches=launches,
+               lane_launches=dict(LANE_LAUNCHES))
+    return out, row
+
+
+def _say_batch(row):
+    say("serve", batch=row["batch"], K=row["K"], queries=row["queries"],
+        iterations=row["iterations"], seconds=f"{row['seconds']:.3f}",
+        queries_per_s=f"{row['queries_per_s']:.2f}",
+        peak_device_GiB=f"{row['peak_device_GiB']:.2f}",
+        host_syncs=row["host_syncs"],
+        launches=json.dumps(row["launches"]).replace(" ", ""),
+        launches_L_gt_1=json.dumps(row["lane_launches"]).replace(" ", ""))
+
+
+def _killer(kill_at):
+    class Killed(RuntimeError):
+        pass
+
+    def kill(engine, program, K, iteration):
+        if iteration == kill_at:
+            raise Killed(f"injected kill at iteration {iteration}")
+    return kill, Killed
+
+
+def serve_grid(graph, want0, grid_src, wd, rows):
+    """The grid's batches: 16 sssp queries as one K = 16 batch (the source-0
+    lane against ``main``'s distances), a solo query, a streamed K = 4
+    batch, and the same K = 4 batch checkpointed, killed and resumed by a
+    fresh engine.  Returns the K = 16 results and the checks."""
+    from repro_torch.obs.metrics import load_registry
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(graph, lane_widths=SERVE_WIDTHS,
+                      stats_dir=os.path.join(wd, "grid_stats"))
+    qs = [eng.submit("sssp", s) for s in grid_src]
+    _, row = _serve_counted("grid sssp", eng.run, len(qs), SERVE_LANES)
+    row["iterations"] = qs[0].iterations
+    _say_batch(row)
+    rows.append(row)
+    lane0 = _tree_same(qs[0].result, want0)
+    solo_j = 5
+    solo = eng.submit("sssp", grid_src[solo_j])
+    _, row = _serve_counted("grid sssp solo", eng.run, 1, 1)
+    row["iterations"] = solo.iterations
+    _say_batch(row)
+    rows.append(row)
+    solo_ok = _tree_same(solo.result, qs[solo_j].result)
+
+    picks = list(range(1, 1 + SERVE_STREAM))
+    for j in picks:
+        eng.submit("sssp", grid_src[j])
+    got, row = _serve_counted("grid sssp stream", lambda: list(eng.stream()),
+                              SERVE_STREAM, SERVE_STREAM)
+    row["iterations"] = max(q.iterations for q in got)
+    _say_batch(row)
+    rows.append(row)
+    by_src = {grid_src[j]: qs[j] for j in picks}
+    stream_iters = [q.iterations for q in got]
+    stream_ok = (sorted(q.source for q in got) ==
+                 sorted(grid_src[j] for j in picks)
+                 and stream_iters == sorted(stream_iters)
+                 and all(_tree_same(q.result, by_src[q.source].result)
+                         for q in got))
+    say("serve", check="grid", source0_lane_bit_identical_to_main=lane0,
+        solo_bit_identical_to_lane=solo_ok,
+        stream_order=",".join(f"{q.source}@{q.iterations}" for q in got),
+        stream_bit_identical_to_run=stream_ok)
+    compiles = eng.trace_counts
+
+    # the streamed batch again, checkpointed every SERVE_CKPT_EVERY
+    # iterations: killed after the first checkpoint past its first lane's
+    # convergence, resumed by a fresh engine
+    its = {q.source: q.iterations for q in got}
+    first = min(its.values())
+    ck = -(-first // SERVE_CKPT_EVERY) * SERVE_CKPT_EVERY
+    if ck >= max(its.values()):
+        ck = SERVE_CKPT_EVERY
+    kill_at = ck + 1
+    ckdir = os.path.join(wd, "grid_ck")
+    kill, killed_exc = _killer(kill_at)
+    batch = [grid_src[j] for j in picks]
+    k_eng = ServeEngine(graph, lane_widths=SERVE_WIDTHS, ckpt_dir=ckdir,
+                        checkpoint_every=SERVE_CKPT_EVERY, on_iteration=kill)
+    for s in batch:
+        k_eng.submit("sssp", s)
+    t = time.perf_counter()
+    try:
+        k_eng.run()
+        killed = False
+    except killed_exc:
+        killed = True
+    killed_s = time.perf_counter() - t
+    r_eng = ServeEngine(graph, lane_widths=SERVE_WIDTHS, ckpt_dir=ckdir,
+                        checkpoint_every=SERVE_CKPT_EVERY)
+    rq = [r_eng.submit("sssp", s) for s in batch]
+    _, row = _serve_counted("grid sssp resumed", r_eng.run, SERVE_STREAM,
+                            SERVE_STREAM)
+    row["iterations"] = rq[0].iterations
+    row["killed_s"] = killed_s
+    _say_batch(row)
+    rows.append(row)
+    events = r_eng.resume_events
+    ev = events[0] if len(events) == 1 else None
+    want_done = tuple(its[s] <= ck for s in batch)
+    resume_ok = (killed and ev is not None and ev.iteration == ck
+                 and ev.lanes_done == want_done
+                 and all(_tree_same(q.result, by_src[q.source].result)
+                         for q in rq))
+    left = sorted(os.listdir(ckdir))
+    say("serve", check="kill-resume", killed_at=kill_at, killed_s=
+        f"{killed_s:.3f}", resumed_at=ev and ev.iteration,
+        lanes_done=ev and ",".join(str(int(b)) for b in ev.lanes_done),
+        bit_identical_to_uninterrupted=resume_ok, left_in_ckpt_dir=left)
+    reg = load_registry(eng.stats_path)
+    compiles_ok = all(reg.value(f"serve.compiles.sssp.K{k}") == 1.0
+                      for k in (1, SERVE_STREAM, SERVE_LANES)) and \
+        all(v == 1 for e in (eng, k_eng, r_eng)
+            for v in e.trace_counts.values())
+    checks = dict(source0_lane_bit_identical_to_main=lane0,
+                  solo_bit_identical_to_lane=solo_ok,
+                  stream_bit_identical_to_run=stream_ok,
+                  stream_iterations=stream_iters,
+                  kill_resume_bit_identical=resume_ok,
+                  resume_event=_event_dict(ev),
+                  ckpt_family_deleted=left == ["serve_stats.json"],
+                  compiles={f"{k[0]}.K{K}": v for (k, K), v in
+                            compiles.items()},
+                  compiles_one_each=compiles_ok)
+    return qs, checks
+
+
+def serve_rmat(graph, seeds, wd, rows):
+    """16 ppr seeds on R-MAT as one K = 16 batch, and one seed's K = 1
+    dispatch, which must equal its lane bit for bit."""
+    from repro_torch.obs.metrics import load_registry
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(graph, lane_widths=SERVE_WIDTHS,
+                      stats_dir=os.path.join(wd, "rmat_stats"))
+    qs = [eng.submit("ppr", s, tolerance=SERVE_PPR_TOL) for s in seeds]
+    _, row = _serve_counted("rmat ppr", eng.run, len(qs), SERVE_LANES)
+    row["iterations"] = qs[0].iterations
+    _say_batch(row)
+    rows.append(row)
+    j = 3
+    solo = eng.submit("ppr", seeds[j], tolerance=SERVE_PPR_TOL)
+    _, row = _serve_counted("rmat ppr solo", eng.run, 1, 1)
+    row["iterations"] = solo.iterations
+    _say_batch(row)
+    rows.append(row)
+    solo_ok = _tree_same(solo.result, qs[j].result)
+    reg = load_registry(eng.stats_path)
+    compiles_ok = all(reg.value(f"serve.compiles.ppr.K{k}") == 1.0
+                      for k in (1, SERVE_LANES))
+    say("serve", check="rmat", solo_bit_identical_to_lane=solo_ok,
+        compiles_one_each=compiles_ok)
+    # the same seeds at the tolerances a user gets by default, for the
+    # printed (not held) oracle errors
+    loose = ServeEngine(graph, lane_widths=SERVE_WIDTHS)
+    by_tol = {tol: [loose.submit("ppr", s, **({} if tol is None else
+                                             {"tolerance": tol}))
+                    for s in seeds]
+              for tol in PPR_TOL_PRINTED}
+    loose.run()
+    return qs, by_tol, dict(solo_bit_identical_to_lane=solo_ok,
+                            compiles_one_each=compiles_ok)
+
+
+def phase_serve(sssp_graph, sssp_data, sssp_es, pr_graph, pr_data):
+    """``ServeEngine`` on both full-size graphs: grid sssp batches (K = 16,
+    solo, streamed, killed and resumed) and R-MAT ppr batches (K = 16,
+    solo), every lane against its oracle (computed by worker processes
+    beside the card's work), the persisted registry's compile counts, and
+    every kernel launched with L > 1."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    import torch
+    from repro_torch import unpack_vertex
+
+    t0 = time.perf_counter()
+    grid_src = serve_sources()
+    pe, _, pn = pr_data
+    senders = np.flatnonzero(np.bincount(pe[:, 0], minlength=pn))
+    seeds = np.random.default_rng(12).choice(senders, SERVE_LANES,
+                                             replace=False).tolist()
+    rows = []
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd, \
+            ProcessPoolExecutor(
+                ORACLE_WORKERS,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+        t = time.perf_counter()
+        dij_f, ppr_f = start_oracles(pool, wd, sssp_data, pr_data, grid_src,
+                                     seeds)
+        oracle_setup_s = time.perf_counter() - t
+        want0 = unpack_vertex(sssp_graph, sssp_es.state["dist"])
+        digest, digest_s = _timed_digest(sssp_graph)
+        grid_qs, grid_checks = serve_grid(sssp_graph, want0, grid_src, wd,
+                                          rows)
+        del want0
+        torch.cuda.empty_cache()
+        rmat_qs, by_tol, rmat_checks = serve_rmat(pr_graph, seeds, wd,
+                                                  rows)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        dij = np.concatenate([np.load(f.result()) for f in dij_f])
+        ppr = np.concatenate([np.load(f.result()) for f in ppr_f], axis=1)
+        oracle_wait_s = time.perf_counter() - t
+    sssp_err, ppr_err, ppr_max = 0.0, 0.0, 0.0
+    for j, q in enumerate(grid_qs):
+        if not np.isfinite(q.result).all():
+            raise AssertionError(f"serve: sssp lane {j} not finite")
+        np.testing.assert_allclose(q.result, dij[j], rtol=1e-4)
+        sssp_err = max(sssp_err, float(np.max(
+            np.abs(q.result - dij[j]) / np.maximum(dij[j], 1e-30))))
+    for j, q in enumerate(rmat_qs):
+        if not np.isfinite(q.result).all():
+            raise AssertionError(f"serve: ppr lane {j} not finite")
+        np.testing.assert_allclose(q.result, ppr[:, j], rtol=2e-3,
+                                   atol=5e-3)
+        ppr_err = max(ppr_err, float(np.max(np.abs(q.result - ppr[:, j]))))
+        ppr_max = max(ppr_max, float(ppr[:, j].max()))
+    say("serve", oracle="sssp dijkstra", lanes=len(grid_qs),
+        max_rel_err=f"{sssp_err:.3e}")
+    say("serve", oracle="ppr power iteration", lanes=len(rmat_qs),
+        max_abs_err=f"{ppr_err:.3e}", max_rank=f"{ppr_max:.4f}",
+        oracle_setup_s=f"{oracle_setup_s:.2f}",
+        oracle_wait_s=f"{oracle_wait_s:.2f}")
+    from repro_torch.core.apps.multi import PersonalizedPageRank
+    ppr_by_tol = {}
+    for tol, qs in by_tol.items():
+        tol = PersonalizedPageRank(lanes=1).tol if tol is None else tol
+        err = max(float(np.max(np.abs(q.result - ppr[:, j])))
+                  for j, q in enumerate(qs))
+        inside = sum(bool(np.allclose(q.result, ppr[:, j], rtol=2e-3,
+                                      atol=5e-3)) for j, q in enumerate(qs))
+        ppr_by_tol[tol] = dict(iterations=qs[0].iterations,
+                               max_abs_err=err, lanes_inside_oracle=inside)
+        say("serve", oracle="ppr power iteration", tolerance=f"{tol:g}",
+            lanes=len(qs), iterations=qs[0].iterations,
+            max_abs_err=f"{err:.3e}", lanes_inside_oracle_tol=inside,
+            held=False)
+    lane_launches = {k: sum(r["lane_launches"][k] for r in rows)
+                     for k in KERNELS}
+    secs = time.perf_counter() - t0
+    say("serve", graph_digest_s=f"{digest_s:.3f}",
+        lane_launches=json.dumps(lane_launches).replace(" ", ""),
+        phase_s=f"{secs:.1f}")
+    checks = dict(grid=grid_checks, rmat=rmat_checks)
+    bad = [k for k, v in {**grid_checks, **{f"rmat_{k}": v for k, v in
+                                            rmat_checks.items()}}.items()
+           if v is False]
+    if bad:
+        raise AssertionError(f"serve: checks failed: {bad}")
+    idle = [k for k, v in lane_launches.items() if not v]
+    if idle:
+        raise AssertionError(f"serve: never launched with L > 1: {idle}")
+    return dict(batches=rows, checks=checks, lane_launches=lane_launches,
+                sssp_oracle_max_rel_err=sssp_err,
+                ppr_oracle_max_abs_err=ppr_err, ppr_by_tolerance=ppr_by_tol,
+                graph_digest_s=digest_s,
+                oracle_setup_s=oracle_setup_s, oracle_wait_s=oracle_wait_s,
+                phase_s=secs)
+
+
+# --------------------------------------------------------------------------
+# obs: tracing, the phased profiler, a traced FT run and the report CLI
+# --------------------------------------------------------------------------
+
+def _schema_check(doc):
+    """The Chrome trace-event schema ``tests/test_obs.py`` holds the
+    reference's export to: complete and instant events with name, cat,
+    ts, pid and tid, durations >= 0, timestamps monotone per track."""
+    evs = [e for e in doc["traceEvents"] if e["ph"] != "M"]
+    ok = bool(evs)
+    by_track = {}
+    for e in evs:
+        ok = ok and e["ph"] in ("X", "i") and all(
+            f in e for f in ("name", "cat", "ts", "pid", "tid")) and \
+            isinstance(e["ts"], (int, float)) and \
+            (e["ph"] != "X" or e["dur"] >= 0)
+        by_track.setdefault((e["pid"], e["tid"]), []).append(e["ts"])
+    return ok and all(ts == sorted(ts) for ts in by_track.values())
+
+
+def obs_traced(app, graph, make, want):
+    """``run_engine`` (hybrid, ELL) with ``trace_hooks(Tracer())``: state
+    and counters against ``main``'s, one superstep span per iteration, the
+    span deltas summed against the run's counters past its init, and the
+    Chrome trace written under ``build/`` against the schema."""
+    from repro_torch.exec.driver import run_engine
+    from repro_torch.exec.policy import make_policy
+    from repro_torch.obs.export import write_chrome_trace
+    from repro_torch.obs.trace import Tracer, trace_hooks
+
+    policy = make_policy("hybrid")
+    prog = make()
+    es0 = policy.init(graph, prog, None)
+    c0 = {f: int(getattr(es0.counters, f)) for f in
+          ("net_messages", "net_local_messages", "mem_messages")}
+    tracer = Tracer()
+    tracer.name_track(0, app)
+    sync()
+    t = time.perf_counter()
+    ctx = run_engine(graph, prog, policy, es=es0, hooks=trace_hooks(tracer))
+    sync()
+    secs = time.perf_counter() - t
+    same = _state_same(ctx.es, want)
+    steps = [s for s in tracer.spans if s.cat == "superstep"]
+    c = ctx.es.counters
+    sums = all(sum(s.args[f] for s in steps) == int(getattr(c, f)) - c0[f]
+               for f in c0) and \
+        sum(s.args["pseudo_supersteps"] for s in steps) == \
+        int(c.pseudo_supersteps.sum())
+    path = os.path.join(ROOT, "build", f"obs_trace_{app}.json")
+    write_chrome_trace(tracer, path)
+    with open(path) as f:
+        schema = _schema_check(json.load(f))
+    span_s = sum(s.dur for s in steps)
+    say("obs", run="traced", app=app, iterations=ctx.iteration,
+        spans=len(steps), run_s=f"{secs:.3f}", span_s=f"{span_s:.3f}",
+        exchange_bytes=sum(s.args["exchange_bytes"] for s in steps),
+        bit_identical_to_main=same, span_sums_equal_counters=sums,
+        trace=os.path.relpath(path, ROOT), schema_ok=schema)
+    ok = same and sums and schema and len(steps) == ctx.iteration
+    if not ok:
+        raise AssertionError(f"obs traced {app}: state {same}, spans "
+                             f"{len(steps)}/{ctx.iteration}, sums {sums}, "
+                             f"schema {schema}")
+    return dict(iterations=ctx.iteration, run_s=secs, span_s=span_s,
+                bit_identical=same, span_sums_equal_counters=sums,
+                schema_ok=schema)
+
+
+def obs_phased(app, engine, graph, make, want):
+    """``phased_run`` (ELL): seconds per phase summed over the supersteps,
+    barriers, exchange bytes and the mean local-compute fraction; the
+    final state and counters against ``want``."""
+    from repro_torch.obs.trace import phased_run
+
+    sync()
+    t = time.perf_counter()
+    res = phased_run(graph, make(), engine, None, use_ell=True)
+    secs = time.perf_counter() - t
+    same = _state_same(res.es, want)
+    phases = {}
+    for r in res.records:
+        for k, v in r.phase_seconds.items():
+            phases[k] = phases.get(k, 0.0) + v
+    say("obs", run="phased", app=app, engine=engine,
+        supersteps=res.iterations, barriers=res.total_barriers,
+        exchange_bytes=res.total_exchange_bytes,
+        phase_s=json.dumps({k: round(v, 4) for k, v in phases.items()})
+        .replace(" ", ""),
+        local_compute_fraction=f"{res.mean_local_compute_fraction:.3f}",
+        run_s=f"{secs:.3f}", bit_identical=same)
+    if not same:
+        raise AssertionError(f"obs phased {app} {engine}: final state "
+                             f"differs from the fused engine's")
+    return dict(supersteps=res.iterations, barriers=res.total_barriers,
+                exchange_bytes=res.total_exchange_bytes,
+                phase_seconds=phases,
+                local_compute_fraction=res.mean_local_compute_fraction,
+                run_s=secs, bit_identical=same)
+
+
+def obs_ft(graph, want, wd):
+    """``run_hybrid_ft`` on the grid with a tracer, a registry and worker 1
+    of 4 killed: one ``recovery`` span, the flags read off the registry
+    equal to the flags from the counters, the final state ``main``'s."""
+    from repro_torch import SSSP
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.ft import (FaultInjector, FaultPlan, flag_slow_shards,
+                                run_hybrid_ft)
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+
+    tracer, reg = Tracer(), MetricsRegistry()
+    ck = AsyncCheckpointer(os.path.join(wd, "ft"), keep=3, codec="raw")
+    inj = FaultInjector(FaultPlan.kill_at(FT_PLAN["sssp"][1], worker=1),
+                        n_workers=4)
+    t = time.perf_counter()
+    res = run_hybrid_ft(graph, SSSP(source=0), checkpointer=ck,
+                        checkpoint_every=3, n_workers=4, injector=inj,
+                        tracer=tracer, registry=reg)
+    secs = time.perf_counter() - t
+    ck.close()
+    rec = [s for s in tracer.spans if s.cat == "ft"]
+    flags = flag_slow_shards(registry=res.registry)
+    flags_ok = flags == res.straggler_flags
+    same = _state_same(res.es, want)
+    hooks = {}
+    for s in tracer.spans:
+        if s.cat == "hook":
+            hooks[s.name] = hooks.get(s.name, 0.0) + s.dur
+    say("obs", run="ft traced", recoveries=len(res.recoveries),
+        recovery_spans=len(rec), flags=len(flags),
+        flags_from_registry_equal=flags_ok,
+        superstep_spans=sum(s.cat == "superstep" for s in tracer.spans),
+        hook_s=json.dumps({k: round(v, 3) for k, v in hooks.items()})
+        .replace(" ", ""), seconds=f"{secs:.3f}", bit_identical_to_main=same)
+    if len(rec) != 1 or rec[0].name != "recovery" or not flags_ok or \
+            not same:
+        raise AssertionError(f"obs ft: {len(rec)} recovery spans, flags "
+                             f"equal {flags_ok}, state {same}")
+    return dict(recovery_spans=len(rec), recovery=dict(rec[0].args),
+                flags=len(flags), flags_equal=flags_ok, hook_seconds=hooks,
+                seconds=secs, bit_identical=same)
+
+
+def obs_report():
+    """``python -m repro_torch.obs.report`` in a subprocess: exit code 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.obs.report"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    secs = time.perf_counter() - t
+    lines = [l for l in r.stdout.splitlines() if l.startswith(
+        ("fixture", "[", "same", "global", "exchange", "local"))]
+    for line in lines:
+        say("obs", report=repr(line))
+    say("obs", run="report", rc=r.returncode, seconds=f"{secs:.1f}")
+    if r.returncode != 0:
+        raise AssertionError(f"obs report exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    return dict(rc=r.returncode, seconds=secs, summary=lines)
+
+
+def phase_obs(sssp_graph, sssp_want, pr_graph, pr_want):
+    """Tracing on both full-size graphs, the phased profiler (hybrid on
+    both, BSP on R-MAT), a traced FT run with one injected kill, and the
+    report CLI."""
+    import tempfile
+    import torch
+    from repro_torch import SSSP, IncrementalPageRank, run_bsp
+    from repro_torch.convert import to_numpy
+
+    t0 = time.perf_counter()
+    sssp = lambda: SSSP(source=0)                           # noqa: E731
+    pr = lambda: IncrementalPageRank(tolerance=PR_TOL)      # noqa: E731
+    out = dict(traced=dict(
+        sssp=obs_traced("sssp", sssp_graph, sssp, sssp_want),
+        pagerank=obs_traced("pagerank", pr_graph, pr, pr_want)))
+    torch.cuda.empty_cache()
+    es, _ = run_bsp(pr_graph, pr())
+    bsp_want = to_numpy(es)
+    del es
+    out["phased"] = dict(
+        sssp_hybrid=obs_phased("sssp", "hybrid", sssp_graph, sssp,
+                               sssp_want),
+        pagerank_hybrid=obs_phased("pagerank", "hybrid", pr_graph, pr,
+                                   pr_want),
+        pagerank_bsp=obs_phased("pagerank", "bsp", pr_graph, pr, bsp_want))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        out["ft"] = obs_ft(sssp_graph, sssp_want, wd)
+    torch.cuda.empty_cache()
+    out["report"] = obs_report()
+    secs = time.perf_counter() - t0
+    say("obs", phase_s=f"{secs:.1f}")
+    out["phase_s"] = secs
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
+    phase_s, mark = {}, [t0]
+
+    def lap(name):
+        """Seconds since the previous lap, kept as ``name``'s."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     smi = phase_device()
     import torch
     from repro_torch import SSSP, IncrementalPageRank
 
     build_s = phase_build()
+    lap("build")
     sweep_cases = phase_sweep()
+    lap("sweep")
     sssp_graph, sssp_data, sssp_build_s = grid_sssp_graph()
     pr_graph, pr_data, pr_build_s = rmat_pagerank_graph()
+    lap("graphs")
 
     sssp_prog, pr_prog = SSSP(source=0), IncrementalPageRank(tolerance=PR_TOL)
     sssp_es, sssp_run = run_counted("main", "sssp", "hybrid", sssp_graph,
@@ -1544,25 +2210,40 @@ def main() -> int:
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    lap("main")
 
     sssp_err = check_sssp(sssp_graph, sssp_es, sssp_data)
     pr_err = check_pagerank(pr_graph, pr_es, pr_data)
+    lap("oracle")
 
     report, timed = kernel_checks(sssp_graph, sssp_prog, sssp_es,
                                   pr_graph, pr_prog, pr_es)
+    lap("kernels")
     profiles = dict(
         sssp=phase_profile("sssp", sssp_graph, SSSP(source=0), 2),
         pagerank=phase_profile("pagerank", pr_graph,
                                IncrementalPageRank(tolerance=PR_TOL), 5))
+    lap("profile")
     engines = phase_engines(sssp_graph, sssp_es, sssp_run, pr_graph, pr_run,
                             pr_data)
+    lap("engines")
     from repro_torch.convert import to_numpy
     pr_want = to_numpy(pr_es)        # the ft phase's reference, on the host
     del pr_es
     apps = phase_apps(sssp_graph, sssp_data)
+    lap("apps")
     io = phase_io(sssp_graph, sssp_data, sssp_es, sssp_run)
-    ft = phase_ft(sssp_graph, to_numpy(sssp_es), sssp_run["iterations"],
+    lap("io")
+    sssp_want = to_numpy(sssp_es)
+    ft = phase_ft(sssp_graph, sssp_want, sssp_run["iterations"],
                   pr_graph, pr_want, pr_run["iterations"])
+    lap("ft")
+    serve = phase_serve(sssp_graph, sssp_data, sssp_es, pr_graph, pr_data)
+    del sssp_es
+    torch.cuda.empty_cache()
+    lap("serve")
+    obs = phase_obs(sssp_graph, sssp_want, pr_graph, pr_want)
+    lap("obs")
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -1586,9 +2267,11 @@ def main() -> int:
                                      oracle_max_abs_err=pr_err, **pr_run),
                        kernel_cases=report, kernels=kernels,
                        profiles=profiles, engines=engines, apps=apps,
-                       io=io, ft=ft), f, indent=1)
+                       io=io, ft=ft, serve=serve, obs=obs,
+                       phase_s=phase_s), f, indent=1)
 
-    say("done", seconds=f"{time.perf_counter() - t0:.1f}")
+    say("done", seconds=f"{time.perf_counter() - t0:.1f}",
+        phase_s=json.dumps(phase_s).replace(" ", ""))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

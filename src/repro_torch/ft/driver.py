@@ -38,9 +38,12 @@ wires them to a :class:`_FaultHook` driving the heartbeat -> reassign ->
 restore cycle between steps.
 
 A port of ``repro.ft.driver``.  Each step is the hybrid policy's step
-(there is no jit); the reference's ``step_fn``/``es_shardings`` (the
-distributed step) and ``tracer``/``registry`` (observability) are not
-ported yet, so straggler flags come from the counters.
+(there is no jit).  ``tracer`` / ``registry`` are the reference's:
+spans for every iteration, hook call and recovery, and a metrics registry
+filled at exit.  The straggler flags always come from the counters (the
+reference reads them off the registry when one is passed: the same
+numbers).  The reference's ``step_fn`` /
+``es_shardings`` (the distributed step) are not ported yet.
 """
 
 from __future__ import annotations
@@ -97,6 +100,7 @@ class FTRunResult:
     straggler_flags: list[ShardFlag]
     resumed_from: str | None      # checkpoint dir this run started from
     epoch: int                    # monitor reassignment epoch at exit
+    registry: Any = None          # MetricsRegistry when one was passed in
 
 
 def reshard_checkpoint_arrays(arrs: dict[str, np.ndarray],
@@ -195,12 +199,14 @@ class _FaultHook(ExecHook):
 
     def __init__(self, monitor: HeartbeatMonitor,
                  injector: FaultInjector | None,
-                 ckpt: CheckpointHook, clock: list, tick_seconds: float):
+                 ckpt: CheckpointHook, clock: list, tick_seconds: float,
+                 tracer=None):
         self.monitor = monitor
         self.injector = injector
         self.ckpt = ckpt
         self.clock = clock
         self.tick_seconds = tick_seconds
+        self.tracer = tracer
         self.recoveries: list[RecoveryEvent] = []
 
     def before_step(self, ctx: ExecContext) -> bool | None:
@@ -221,6 +227,13 @@ class _FaultHook(ExecHook):
             restored_iteration=rit, iterations_lost=ctx.iteration - rit,
             restore_seconds=obs_clock.perf_counter() - t0, bytes_read=nbytes)
         self.recoveries.append(ev)
+        if self.tracer is not None:
+            self.tracer.add(
+                "recovery", t0, ev.restore_seconds, cat="ft", ph="X",
+                tick=ev.tick, failed_workers=list(ev.failed_workers),
+                restored_iteration=rit,
+                iterations_lost=ev.iterations_lost,
+                bytes_read=ev.bytes_read)
         ctx.es, ctx.iteration = es, rit
         return False                  # rolled back: skip this tick's step
 
@@ -245,6 +258,8 @@ def run_hybrid_ft(
     tick_seconds: float = 1.0,
     straggler_factor: float = 1.5,
     balance: float | None = None,
+    tracer=None,
+    registry=None,
     device: str | torch.device | None = None,
 ) -> FTRunResult:
     """Run global iterations to quiescence with checkpointing + recovery.
@@ -276,12 +291,22 @@ def run_hybrid_ft(
     exceeds that multiple of the median; ``balance`` (the labeling's max
     partition size over the even share) marks the flags as skew.
 
+    ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`) records one span
+    per global iteration, the checkpoint/fault hooks' per-method costs, and
+    a ``recovery`` span (``cat="ft"``) for every failure -> restore cycle.
+    ``registry`` (a :class:`repro_torch.obs.metrics.MetricsRegistry`)
+    receives the run's counters / checkpoint / recovery metrics at exit;
+    ``flag_slow_shards(registry=)`` reads the same straggler flags back off
+    its ``engine.pseudo_supersteps`` and ``partition.balance`` gauges.
+    Both default to off, adding nothing to the run.
+
     Returns:
         An :class:`FTRunResult`: the final ``EngineState`` (``es``) and
         iteration count, every :class:`RecoveryEvent` and straggler
         ``ShardFlag`` observed, ``resumed_from`` (checkpoint dir this run
-        restored from, or ``None`` for a cold start) and the monitor's
-        final reassignment ``epoch``.
+        restored from, or ``None`` for a cold start), the monitor's final
+        reassignment ``epoch``, and the populated ``registry`` (when one
+        was passed).
 
     Raises:
         CheckpointError: a checkpoint under ``ckpt_dir`` is keyed to a
@@ -309,14 +334,33 @@ def run_hybrid_ft(
                                    clock=lambda: clock[0])
         for p, w in enumerate(partition_owners(P, n_workers)):
             monitor.assign(int(w), p)
-    fault = _FaultHook(monitor, injector, ckpt, clock, tick_seconds)
+    fault = _FaultHook(monitor, injector, ckpt, clock, tick_seconds,
+                       tracer=tracer)
+
+    hooks: tuple = (fault, ckpt)
+    if tracer is not None:
+        # opt-in only: the default path never imports the tracing module
+        from repro_torch.obs.trace import trace_hooks, wrap_hooks
+        hooks = wrap_hooks(tracer, hooks) + trace_hooks(tracer)
 
     ctx = run_engine(graph, prog, policy, vdata, max_iters=max_iters,
-                     hooks=(fault, ckpt), es=template)
+                     hooks=hooks, es=template)
 
+    if registry is not None:
+        from repro_torch.obs.metrics import (record_checkpointer,
+                                             record_engine_counters)
+        record_engine_counters(registry, ctx.es.counters)
+        if ckpt.checkpointer is not None:
+            record_checkpointer(registry, ckpt.checkpointer)
+        if balance is not None:
+            registry.set_gauge("partition.balance", float(balance))
+        registry.set_counter("ft.recoveries", float(len(fault.recoveries)))
+        registry.set_counter("ft.iterations_lost", float(sum(
+            r.iterations_lost for r in fault.recoveries)))
     pseudo = ctx.es.counters.pseudo_supersteps.cpu().numpy()
     flags = flag_slow_shards(pseudo, balance=balance,
                              factor=straggler_factor)
     return FTRunResult(es=ctx.es, iterations=ctx.iteration,
                        recoveries=fault.recoveries, straggler_flags=flags,
-                       resumed_from=ckpt.resumed_from, epoch=monitor.epoch)
+                       resumed_from=ckpt.resumed_from, epoch=monitor.epoch,
+                       registry=registry)

@@ -9,7 +9,7 @@ Two mechanisms, one per workload kind:
   quorum of pods delivered deltas; laggard deltas ride the next exchange via
   the error-feedback residual (gradient-skip voting, DESIGN.md §7).
 
-A copy of ``repro.ft.straggler``, less its metrics-registry input.
+A copy of ``repro.ft.straggler``.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ class ShardFlag:
 
 
 def flag_slow_shards(pseudo_supersteps=None, balance: float | None = None,
-                     factor: float = 1.5) -> list[ShardFlag]:
+                     factor: float = 1.5, registry=None) -> list[ShardFlag]:
     """Flag shards whose local phase runs long, from the per-partition
     ``Counters.pseudo_supersteps`` the hybrid engine already keeps.
 
@@ -111,10 +111,17 @@ def flag_slow_shards(pseudo_supersteps=None, balance: float | None = None,
     itself is skewed past the same factor the remedy is re-partitioning,
     not failover, so the cause reads 'skew'.
 
-    The reference also reads both inputs off a metrics registry; the port
-    has no metrics registry yet, so the counters are passed in."""
+    ``registry`` (a :class:`repro_torch.obs.metrics.MetricsRegistry`)
+    supplies either input not passed explicitly: the per-partition vector
+    from the ``engine.pseudo_supersteps`` gauge, the balance from
+    ``partition.balance``."""
     import numpy as np
 
+    if registry is not None:
+        if pseudo_supersteps is None:
+            pseudo_supersteps = registry.value("engine.pseudo_supersteps")
+        if balance is None:
+            balance = registry.value("partition.balance")
     if pseudo_supersteps is None:
         return []
     counts = np.asarray(pseudo_supersteps)

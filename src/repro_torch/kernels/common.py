@@ -18,8 +18,8 @@ import torch
 
 __all__ = ["minimum", "maximum", "SEMIRINGS", "SEMIRING_IDS", "MONOTONE_SEMIRINGS", "FOLD_SLICES",
            "semiring_improves", "fold_block", "slot_fold", "f32", "LAUNCHES",
-           "reset_launches", "check_ell_operands", "check_rows",
-           "require_cuda_contiguous", "ell_pack_numpy",
+           "LANE_LAUNCHES", "reset_launches", "check_ell_operands",
+           "check_rows", "require_cuda_contiguous", "ell_pack_numpy",
            "ell_bin_widths", "sliced_ell_pack_numpy"]
 
 
@@ -67,11 +67,15 @@ FOLD_SLICES = 128
 #: Kernel launches per wrapper; each wrapper adds one where it launches its
 #: CUDA kernel and nowhere else (the plain versions do not count).
 LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0}
+# the launches of LAUNCHES that took an (N, L) frontier with L > 1 (the
+# K-lane programs' queries), counted at the same place
+LANE_LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LANE_LAUNCHES[k] = 0
 
 
 def semiring_improves(semiring: str):

@@ -7,7 +7,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import bind
-from repro_torch.kernels.common import (LAUNCHES, SEMIRING_IDS, SEMIRINGS,
+from repro_torch.kernels.common import (LANE_LAUNCHES, LAUNCHES,
+                                        SEMIRING_IDS, SEMIRINGS,
                                         check_ell_operands, fold_block,
                                         require_cuda_contiguous)
 from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
@@ -46,4 +47,6 @@ def ell_spmv(idx, val, msk, x, *, semiring: str = "add_mul"):
     if rc:
         raise RuntimeError(f"ell_spmv launch failed with CUDA error {rc}")
     LAUNCHES["ell_spmv"] += 1
+    if lanes > 1:
+        LANE_LAUNCHES["ell_spmv"] += 1
     return y

@@ -8,7 +8,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import bind
-from repro_torch.kernels.common import (LAUNCHES, MONOTONE_SEMIRINGS,
+from repro_torch.kernels.common import (LANE_LAUNCHES, LAUNCHES,
+                                        MONOTONE_SEMIRINGS,
                                         SEMIRING_IDS, SEMIRINGS,
                                         check_ell_operands, check_rows,
                                         fold_block, require_cuda_contiguous)
@@ -64,4 +65,6 @@ def fused_min_step(idx, val, msk, x, send, xrow=None, extra=None, *,
     if rc:
         raise RuntimeError(f"min_step launch failed with CUDA error {rc}")
     LAUNCHES["min_step"] += 1
+    if lanes > 1:
+        LANE_LAUNCHES["min_step"] += 1
     return x_out, d_out, send_out

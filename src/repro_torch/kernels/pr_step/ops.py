@@ -8,7 +8,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import bind
-from repro_torch.kernels.common import (LAUNCHES, check_ell_operands,
+from repro_torch.kernels.common import (LANE_LAUNCHES, LAUNCHES,
+                                        check_ell_operands,
                                         check_rows, f32, fold_block,
                                         require_cuda_contiguous)
 from repro_torch.kernels.pr_step.ref import fused_pr_step_ref
@@ -61,4 +62,6 @@ def fused_pr_step(idx, val, msk, delta, send, rank, extra=None, *,
     if rc:
         raise RuntimeError(f"pr_step launch failed with CUDA error {rc}")
     LAUNCHES["pr_step"] += 1
+    if lanes > 1:
+        LANE_LAUNCHES["pr_step"] += 1
     return rank_out, d_out, send_out

@@ -9,10 +9,14 @@ import sys
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "src")
 
-# the graph I/O, checkpoint and fault-tolerance modules: each must be
-# found by the walk below, and import clean like the rest
+# the graph I/O, checkpoint, fault-tolerance, observability and serving
+# modules: each must be found by the walk below, and import clean like the
+# rest
 IO_FT_MODULES = (
-    "repro_torch.obs", "repro_torch.obs.clock",
+    "repro_torch.obs", "repro_torch.obs.clock", "repro_torch.obs.metrics",
+    "repro_torch.obs.export", "repro_torch.obs.trace",
+    "repro_torch.obs.report", "repro_torch.serve",
+    "repro_torch.serve.engine",
     "repro_torch.io", "repro_torch.io.readers", "repro_torch.io.format",
     "repro_torch.io.stage", "repro_torch.io.digest",
     "repro_torch.io.pipeline", "repro_torch.io.convert",
@@ -61,5 +65,18 @@ def test_import_builds_no_kernel(tmp_path):
             "repro_torch.kernels.min_step, repro_torch.kernels.pr_step\n"
             "from repro_torch.kernels import build\n"
             "import sys; sys.exit(len(calls) + len(build._LIBS))")
+    r = _run(code, tmp_path)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_obs_package_loads_only_clock(tmp_path):
+    """``import repro_torch.obs`` loads the clock and nothing else of
+    ``obs``: tracing, metrics, export and the report load on first use."""
+    code = ("import sys, repro_torch.obs as o\n"
+            "loaded = sorted(m for m in sys.modules\n"
+            "                if m.startswith('repro_torch.obs.'))\n"
+            "assert loaded == ['repro_torch.obs.clock'], loaded\n"
+            "o.trace.Tracer\n"
+            "assert 'repro_torch.obs.trace' in sys.modules\n")
     r = _run(code, tmp_path)
     assert r.returncode == 0, r.stdout + r.stderr
