@@ -33,6 +33,25 @@ Phases, one line each (any failure exits non-zero and prints no result):
               over up to ~4,000 hops against float64), PageRank against a
               scipy power iteration (rtol 2e-3, atol 5e-3: Algorithm 5
               drops residuals <= tolerance at each receipt).
+5a. dist    — the distributed hybrid step (``repro_torch.core.
+              distributed``) at world 4 on both graphs, rebuilt on the
+              host with ``edge_blocks=4`` under the ``graphs`` phase's
+              labels: 4 spawned ranks share the card and talk through
+              gloo (NCCL refuses two ranks on one device), each rank's
+              16-partition block cut from the host graph, which reaches
+              the ranks through shared memory, and copied to the card.
+              Each run bit for bit against ``run_hybrid`` on the card on
+              the same graph (the whole state, iterations, counters,
+              per-partition pseudo-supersteps), SSSP also against
+              ``main``'s distances; fails unless ``ell_spmv`` and
+              ``min_step`` (SSSP), ``pr_step`` and ``ell_spmv`` (PageRank)
+              launched in every rank; each kernel once at a rank's block
+              shapes against its plain version.  Prints seconds, per-rank
+              pseudo-supersteps, host syncs, collectives and exchange
+              bytes per iteration, staged bytes and peak device memory.
+              Then SSSP over a bfloat16 wire, traced, stopped at 40
+              iterations: its Dijkstra error printed, not held (see
+              ``phase_dist``).
 6. kernels  — every kernel's wrapper on the card at every shape the main
               path gave it, held bit-identical to its plain PyTorch version
               on the same CUDA tensors, and the engine's fused steps
@@ -70,8 +89,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
               MultiSourceMonotone (K = 4, min_add and max_min) and
               PersonalizedPageRank (K = 4) on R-MAT 2^16 (bipartite:
               2^15 + 2^15), each through all three engines × {ell, dense}
-              on the card and on the host, state, masks, iterations and
-              counters bit for bit; launches per kernel per app.  Fails
+              on the card, and one engine × delivery per app (round robin,
+              so each of the six is held) again on the host, state,
+              masks, iterations and counters bit for bit; launches per
+              kernel per app.  Fails
               unless ``min_step`` ran under a semiring other than
               ``min_add`` and ``pr_step`` ran with lanes.
 10. io       — the grid's edge list staged to disk, spilled to a ``.ghp``
@@ -83,7 +104,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
               ``main`` run's distances and counters bit for bit.
 11. ft       — on both full-size graphs: (a) ``run_hybrid_ft`` stopped at
               ``max_iters`` (10 of SSSP's 20 iterations, 25 of PageRank's
-              50) and resumed from its checkpoint, (b) one call with
+              50) and resumed from its checkpoint (PageRank checkpointing
+              every 5th iteration), (b) one call with
               worker 1 of 4 killed by ``FaultPlan.kill_at`` and
               ``checkpoint_every=3``, exactly one recovery; each must end
               on the ``main`` run's final state and counters bit for bit
@@ -131,6 +153,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
 
 Every phase prints its wall time; the ``[done]`` line gives the seconds
 of each phase (``phase_s``), set-up and checks included.
+
+Cut to stay inside the 1200 s limit with ``dist``: ``apps`` reruns one
+configuration per app on the host (was all six), ``ft``'s PageRank
+stop-and-resume checkpoints every 5th iteration (was every one).
 
 The third-to-last line is ``{"kernels": [...]}``, the line after it the
 card's name and power limit, and the last line
@@ -337,7 +363,7 @@ def rmat_pagerank_graph():
         host_build_s=f"{secs:.2f}", shape=graph.shape_summary.replace(" ", ","),
         local_bins=[tuple(s.flat_idx.shape) for s in graph.local_ell],
         remote_bins=[tuple(s.flat_idx.shape) for s in graph.remote_ell])
-    return graph, (edges, w, n), secs
+    return graph, (edges, w, n), secs, part
 
 
 def run_counted(phase, app, engine, graph, prog, use_ell=True, vdata=None,
@@ -389,14 +415,19 @@ def check_sssp(graph, es, data):
     adj = csr_matrix((w.astype(np.float64), (edges[:, 0], edges[:, 1])),
                      shape=(n, n))
     want = dijkstra(adj, indices=0)
-    err = float(np.max(np.abs(got - want) / np.maximum(want, 1e-30)))
+    err = _rel_err(got, want)
     ok = bool(np.isfinite(got).all()) and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-4)
     say("oracle", app="sssp", max_rel_err=f"{err:.3e}", finite=ok,
         max_dist=f"{float(want.max()):.2f}")
     if not ok:
         raise AssertionError("SSSP distances not finite")
-    return err
+    return err, want
+
+
+def _rel_err(got, want):
+    import numpy as np
+    return float(np.max(np.abs(got - want) / np.maximum(want, 1e-30)))
 
 
 def check_pagerank(graph, es, data):
@@ -419,6 +450,218 @@ def check_pagerank(graph, es, data):
     say("oracle", app="pagerank", max_abs_err=f"{err:.3e}",
         rank_sum=f"{float(got.sum()):.1f}")
     return err
+
+
+# --------------------------------------------------------------------------
+# dist: the distributed step, 4 ranks sharing the card over gloo
+# --------------------------------------------------------------------------
+
+DIST_WORLD = 4
+DIST_DEVICE = "cuda:0"    # every rank on the one card
+DIST_DEADLINE_S = 300.0   # per spawn: a hung rank fails the phase
+# the bf16-wire grid run stops here: at this scale it does not reach
+# quiescence (see phase_dist)
+DIST_BF16_MAX_ITERS = 40
+
+
+def dist_graphs(sssp_data, pr_data, pr_part):
+    """Both main-path graphs rebuilt on the host with ``edge_blocks=4``
+    (one edge block per rank) under the ``graphs`` phase's labels: only
+    the block layout differs from ``main``'s graphs."""
+    from repro_torch import build_partitioned_graph
+
+    out = {}
+    for app, (edges, w, n), part, kw in (
+            ("sssp", sssp_data, None, {}),
+            ("pagerank", pr_data, pr_part, dict(ell_base_slices=16))):
+        t = time.perf_counter()
+        part = grid_tiles(n) if part is None else part
+        out[app] = build_partitioned_graph(
+            edges, n, part, weights=w, edge_blocks=DIST_WORLD,
+            device="cpu", **kw)
+        say("dist", app=app, host_build_s=f"{time.perf_counter() - t:.2f}",
+            shape=out[app].shape_summary.replace(" ", ","))
+    return out
+
+
+def dist_kernel_checks(app, graph, prog, es):
+    """Each kernel of ``app``'s path once at rank 0's block shapes (its
+    block view on the card, the block of the card run's final state and
+    a random send mask), against its plain version: the fused local step
+    (and its spill bins' ``ell_spmv``) and every remote bin's
+    ``ell_spmv``."""
+    import torch
+    from repro_torch.core.distributed import block_state, block_view
+    from repro_torch.core.runtime import slice_flat
+    from repro_torch.exec.local_phase import fused_step_fn
+    from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
+
+    bg = block_view(graph, 0, DIST_WORLD, DIST_DEVICE)
+    bes = block_state(es, 0, DIST_WORLD, DIST_DEVICE)
+    p = bg.vertex_gid.shape[0]
+    ch = prog.channels[0]
+    gen = torch.Generator(device=DIST_DEVICE).manual_seed(1)
+    kind = "min_step" if app == "sssp" else "pr_step"
+    x = bes.state["dist" if kind == "min_step" else "rank"].contiguous()
+    send = torch.rand(x.shape, generator=gen, device=DIST_DEVICE) < 0.5
+    args = (x, send) if kind == "min_step" else (x, x * 1e-3, send)
+    rows = []
+
+    def check(name, shape, got, want):
+        same = _same_nan(got, want)
+        rows.append(dict(name=name, shape=shape, bit_identical=same,
+                         max_abs_err=_max_abs_err(got, want)))
+        say("dist", app=app, kernel=name, block_shape=shape,
+            bit_identical=same, max_abs_err=rows[-1]["max_abs_err"])
+        if not same:
+            raise AssertionError(f"dist {app} {name} {shape}: kernel and "
+                                 f"plain version differ at block shapes")
+
+    step, slices, views = fused_step_fn(bg, prog, kind, p)
+    plain, _, _ = fused_step_fn(bg, prog, kind, p, plain=True)
+    check(f"{kind} step", f"{tuple(views[0][1].shape)}+{len(slices) - 1}"
+          f" spill", step(*args), plain(*args))
+    table = torch.cat([bes.out[ch.name], bes.halo_out[ch.name]], dim=1)
+    xr = table.reshape(-1).to(torch.float32).contiguous()
+    for s in bg.remote_ell:
+        _, idx, msk = slice_flat(s, bg, p)
+        v = prog.ell_edge_values(ch, s.val).reshape(-1, s.kb)
+        check("ell_spmv", f"remote {tuple(idx.shape)}",
+              ell_spmv(idx, v, msk, xr, semiring=ch.semiring),
+              ell_spmv_ref(idx, v, msk, xr, semiring=ch.semiring))
+    return rows
+
+
+def dist_run(app, graph, make, **kw):
+    """``run_dist_hybrid`` on 4 ranks sharing ``cuda:0`` over gloo, the
+    global host graph reaching them through shared memory; prints one
+    line for the run and one per rank."""
+    from repro_torch.core.distributed import run_dist_hybrid
+
+    t = time.perf_counter()
+    r = run_dist_hybrid(graph, make(), DIST_WORLD, backend="gloo",
+                        device=DIST_DEVICE, deadline_s=DIST_DEADLINE_S, **kw)
+    secs = time.perf_counter() - t
+    it = r.iterations
+    wire = kw.get("wire_dtype")
+    ranks = []
+    for rank, x in enumerate(r.ranks):
+        per_it = {k: x["comm"][k] / it
+                  for k in ("collectives", "wire_bytes")}
+        ranks.append(dict(
+            rank=rank, run_s=x["seconds"], block_s=x["block_s"],
+            pseudo_supersteps=int(x["pseudo_supersteps"].sum()),
+            host_syncs=x["host_syncs"], launches=x["launches"],
+            collectives_per_iteration=per_it["collectives"],
+            exchange_bytes_per_iteration=per_it["wire_bytes"],
+            staged_bytes=x["comm"]["staged_bytes"],
+            peak_device_GiB=x["peak_device_bytes"] / 2**30))
+        say("dist", app=app, rank=rank, wire=str(wire),
+            run_s=f"{x['seconds']:.3f}", block_s=f"{x['block_s']:.3f}",
+            pseudo_supersteps=ranks[-1]["pseudo_supersteps"],
+            host_syncs=x["host_syncs"],
+            launches=json.dumps(x["launches"]).replace(" ", ""),
+            collectives_per_iteration=f"{per_it['collectives']:.3f}",
+            exchange_bytes_per_iteration=f"{per_it['wire_bytes']:.0f}",
+            staged_bytes=x["comm"]["staged_bytes"],
+            peak_device_GiB=f"{ranks[-1]['peak_device_GiB']:.2f}")
+    say("dist", app=app, world=DIST_WORLD, backend="gloo", wire=str(wire),
+        iterations=it, seconds=f"{secs:.2f}", share_s=f"{r.share_s:.2f}",
+        run_s=f"{max(x['run_s'] for x in ranks):.3f}")
+    return r, dict(iterations=it, seconds=secs, share_s=r.share_s,
+                   ranks=ranks)
+
+
+def phase_dist(sssp_graph, sssp_data, sssp_es, sssp_dijkstra, pr_data,
+               pr_part):
+    """The distributed hybrid step at world 4 on both full-size graphs:
+    each held bit for bit against ``run_hybrid`` on the card on the same
+    ``edge_blocks=4`` graph (the whole engine state, iterations, every
+    counter, per-partition pseudo-supersteps), with ``ell_spmv`` and
+    ``min_step`` (SSSP) or ``pr_step`` and ``ell_spmv`` (PageRank)
+    launched inside every rank, and each kernel once at a rank's block
+    shapes against its plain version.  SSSP is also held to ``main``'s
+    distances (a min fixed point does not depend on the layout).
+
+    Then SSSP over a bfloat16 wire, traced (one ``dist_step`` span per
+    iteration), stopped after ``DIST_BF16_MAX_ITERS`` iterations; its
+    error against Dijkstra is printed, not held.  Every partition
+    crossing rounds a distance to 8 significant bits: on this grid's
+    distances (to ~12,700, where bf16 values are 64 apart) a crossing
+    can round a distance down by up to 32, more than a round trip's
+    edge weights (2 to 20), so each echo across a cut lowers distances
+    below the true ones and the run does not reach quiescence — the
+    error is the wire's, and no fixed tolerance states it."""
+    import numpy as np
+    import torch
+    from repro_torch import IncrementalPageRank, SSSP, unpack_vertex
+    from repro_torch.convert import to_numpy
+    from repro_torch.core.distributed import block_view
+
+    graphs = dist_graphs(sssp_data, pr_data, pr_part)
+    makes = {"sssp": lambda: SSSP(source=0),
+             "pagerank": lambda: IncrementalPageRank(tolerance=PR_TOL)}
+    need = {"sssp": ("ell_spmv", "min_step"),
+            "pagerank": ("pr_step", "ell_spmv")}
+    out = {}
+    for app in ("sssp", "pagerank"):
+        graph = graphs[app]
+        card = block_view(graph, 0, 1, DIST_DEVICE)
+        es, host = run_counted("dist", app, "hybrid", card, makes[app]())
+        want = to_numpy(es)
+        kernels = dist_kernel_checks(app, graph, makes[app](), es)
+        del card, es
+        torch.cuda.empty_cache()
+        r, row = dist_run(app, graph, makes[app])
+        same = _state_same(r.es, want) and \
+            r.iterations == host["iterations"]
+        idle = [(rank, k) for rank, x in enumerate(row["ranks"])
+                for k in need[app] if not x["launches"][k]]
+        row.update(host_run_s=host["run_s"], bit_identical_to_host=same,
+                   kernels=kernels)
+        if app == "sssp":
+            got = unpack_vertex(graph, r.es.state["dist"])
+            main = unpack_vertex(sssp_graph, sssp_es.state["dist"])
+            row["bit_identical_to_main"] = bool(np.array_equal(
+                got.view(np.uint32), main.view(np.uint32)))
+        say("dist", app=app, bit_identical_to_host=same,
+            bit_identical_to_main=row.get("bit_identical_to_main"),
+            host_run_s=f"{host['run_s']:.3f}", idle=idle or None)
+        out[app] = row
+        if not same or row.get("bit_identical_to_main") is False:
+            raise AssertionError(f"dist {app}: the ranks' run differs from "
+                                 f"the single-process run")
+        if idle:
+            raise AssertionError(f"dist {app}: (rank, kernel) never "
+                                 f"launched: {idle}")
+        del r
+
+    r, row = dist_run("sssp", graphs["sssp"], makes["sssp"],
+                      wire_dtype=torch.bfloat16, trace=True,
+                      max_iters=DIST_BF16_MAX_ITERS)
+    got = unpack_vertex(graphs["sssp"], r.es.state["dist"])
+    spans = [s for s in r.spans if s.name == "dist_step"]
+    row.update(max_rel_err_vs_dijkstra=_rel_err(got, sssp_dijkstra),
+               quiescent=r.iterations < DIST_BF16_MAX_ITERS,
+               spans=len(spans),
+               traced_exchange_bytes=[s.args["exchange_bytes"]
+                                      for s in spans],
+               pseudo_supersteps_per_iteration=[
+                   sum(s.args["pseudo_supersteps_per_block"])
+                   for s in spans])
+    say("dist", app="sssp", wire="torch.bfloat16",
+        max_rel_err_vs_dijkstra=f"{row['max_rel_err_vs_dijkstra']:.3e}",
+        quiescent=row["quiescent"], dist_step_spans=len(spans),
+        iterations=r.iterations,
+        traced_exchange_bytes=sum(row["traced_exchange_bytes"]),
+        pseudo_supersteps_per_iteration=json.dumps(
+            row["pseudo_supersteps_per_iteration"]).replace(" ", ""))
+    if len(spans) != r.iterations or not np.isfinite(got).all():
+        raise AssertionError(f"dist bf16: {len(spans)} dist_step spans for "
+                             f"{r.iterations} iterations, or distances "
+                             f"not finite")
+    out["sssp_bf16"] = row
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1209,12 +1452,18 @@ def check_wcc_grid(graph, data):
     return dict(components=int(n_comp), **run)
 
 
+APPS_CONFIGS = [(engine, use_ell) for engine in ("bsp", "am", "hybrid")
+                for use_ell in (True, False)]
+
+
 def phase_apps(sssp_graph, sssp_data):
     """WCC on the full-size grid against scipy, then every other app on
-    the card and on the host, bit for bit, through all three engines ×
-    {ell, dense}, with launches per kernel per app.  Fails unless
-    ``min_step`` ran under a semiring other than ``min_add`` and
-    ``pr_step`` ran with lanes."""
+    the card through all three engines × {ell, dense}, with launches per
+    kernel per app; one configuration per app (the i-th app the i-th of
+    ``APPS_CONFIGS``, round robin, so each configuration is held) again
+    on the host, bit for bit.  The CPU tests hold every app × engine ×
+    delivery against the reference.  Fails unless ``min_step`` ran under
+    a semiring other than ``min_add`` and ``pr_step`` ran with lanes."""
     from repro_torch import run_am, run_bsp, run_hybrid
     from repro_torch.kernels.common import LAUNCHES
 
@@ -1223,32 +1472,34 @@ def phase_apps(sssp_graph, sssp_data):
     wcc = check_wcc_grid(sssp_graph, sssp_data)
     card, host = apps_workloads("cuda"), apps_workloads("cpu")
     rows = {}
-    for app, (graph, make, vdata) in card.items():
+    for i, (app, (graph, make, vdata)) in enumerate(card.items()):
         hgraph, _, hvdata = host[app]
         launches = {k: 0 for k in LAUNCHES}
         per_config = {}
+        held = APPS_CONFIGS[i % len(APPS_CONFIGS)]
         t = time.perf_counter()
-        for engine in ("bsp", "am", "hybrid"):
-            for use_ell in (True, False):
-                es, run = run_counted("apps", app, engine, graph, make(),
-                                      use_ell=use_ell, vdata=vdata,
-                                      quiet=True)
-                got = _run_snapshot(es, run["iterations"])
-                want = _run_snapshot(*runners[engine](
-                    hgraph, make(), vdata=hvdata, use_ell=use_ell,
-                    device="cpu"))
-                same = got[0] == want[0] and _tree_same(got[1], want[1])
-                label = f"{engine}-{'ell' if use_ell else 'dense'}"
-                per_config[label] = dict(iterations=run["iterations"],
-                                         launches=run["launches"],
-                                         bit_identical=same)
-                for k, v in run["launches"].items():
-                    launches[k] += v
-                if not same:
-                    raise AssertionError(f"{app} {label}: card and host "
-                                         f"runs differ")
+        for engine, use_ell in APPS_CONFIGS:
+            es, run = run_counted("apps", app, engine, graph, make(),
+                                  use_ell=use_ell, vdata=vdata, quiet=True)
+            label = f"{engine}-{'ell' if use_ell else 'dense'}"
+            per_config[label] = dict(iterations=run["iterations"],
+                                     launches=run["launches"])
+            for k, v in run["launches"].items():
+                launches[k] += v
+            if (engine, use_ell) != held:
+                continue
+            got = _run_snapshot(es, run["iterations"])
+            want = _run_snapshot(*runners[engine](
+                hgraph, make(), vdata=hvdata, use_ell=use_ell,
+                device="cpu"))
+            same = got[0] == want[0] and _tree_same(got[1], want[1])
+            per_config[label]["bit_identical"] = same
+            if not same:
+                raise AssertionError(f"{app} {label}: card and host "
+                                     f"runs differ")
         secs = time.perf_counter() - t
         say("apps", app=app, configs=len(per_config), bit_identical=True,
+            host_held=f"{held[0]}-{'ell' if held[1] else 'dense'}",
             iterations=json.dumps({k: v["iterations"] for k, v in
                                    per_config.items()}).replace(" ", ""),
             launches=json.dumps(launches).replace(" ", ""),
@@ -1392,6 +1643,9 @@ def phase_io(sssp_graph, sssp_data, sssp_es, sssp_run):
 # (b) kills worker 1 of 4 (detected two ticks later, past the last
 # checkpoint of checkpoint_every=3, so one iteration is lost)
 FT_PLAN = {"sssp": (10, 9), "pagerank": (25, 24)}
+# checkpoint cadence of the stop-and-resume half: PageRank's 192 MB
+# checkpoints every 5th iteration (the stop at 25 lands on one)
+FT_EVERY = {"sssp": 1, "pagerank": 5}
 
 
 def _counted(fn):
@@ -1435,8 +1689,8 @@ def _state_same(got, want):
 
 def ft_app(app, graph, make, want, want_iters, base):
     """(a) ``run_hybrid_ft`` stopped at ``max_iters=k`` and run again with
-    ``resume=True``; (b) one call with worker 1 of 4 killed and
-    ``checkpoint_every=3``.  Both must end on ``want`` (a numpy snapshot of
+    ``resume=True``, checkpointing every ``FT_EVERY[app]`` iterations;
+    (b) one call with worker 1 of 4 killed and ``checkpoint_every=3``.  Both must end on ``want`` (a numpy snapshot of
     the ``main`` run's final state) bit for bit, counters included."""
     from repro_torch.checkpoint import (AsyncCheckpointer, latest_checkpoint,
                                         load_checkpoint, read_manifest)
@@ -1444,10 +1698,12 @@ def ft_app(app, graph, make, want, want_iters, base):
     from repro_torch.ft import FaultInjector, FaultPlan, run_hybrid_ft
 
     k, kill_tick = FT_PLAN[app]
+    every = FT_EVERY[app]
     ck = AsyncCheckpointer(os.path.join(base, app, "a"), keep=3,
                            codec="raw")
     r1, s1, l1, h1 = _counted(lambda: run_hybrid_ft(
-        graph, make(), checkpointer=ck, max_iters=k))
+        graph, make(), checkpointer=ck, checkpoint_every=every,
+        max_iters=k))
     path = latest_checkpoint(ck.base)
     step_a = read_manifest(path)["step"]    # before the resume's GC drops it
     template = init_hybrid(graph, make(), None)
@@ -1457,7 +1713,8 @@ def ft_app(app, graph, make, want, want_iters, base):
     restore_s = time.perf_counter() - t
     del template
     r2, s2, l2, h2 = _counted(lambda: run_hybrid_ft(
-        graph, make(), checkpointer=ck, resume=True))
+        graph, make(), checkpointer=ck, checkpoint_every=every,
+        resume=True))
     ck.close()
     lost_a = r1.iterations - step_a if r2.resumed_from == path else None
     ck_a = ck.written
@@ -1469,7 +1726,7 @@ def ft_app(app, graph, make, want, want_iters, base):
     say("ft", app=app, run="kill-resume", killed_at=r1.iterations,
         resumed_from=os.path.basename(r2.resumed_from or ""),
         iterations=r2.iterations, seconds=f"{s1:.3f}+{s2:.3f}",
-        checkpoints=ck_a, checkpoint_bytes=ck.bytes_written,
+        checkpoint_every=every, checkpoints=ck_a, checkpoint_bytes=ck.bytes_written,
         snapshot_s=f"{ck.save_seconds:.3f}",
         write_s=f"{ck.write_seconds:.3f}", restore_s=f"{restore_s:.3f}",
         iterations_lost=lost_a, host_syncs=h1 + h2,
@@ -1496,7 +1753,8 @@ def ft_app(app, graph, make, want, want_iters, base):
         launches=json.dumps(lb).replace(" ", ""),
         bit_identical_to_main=same_b)
     out = dict(
-        kill_resume=dict(killed_at=k, seconds=[s1, s2], **written_a,
+        kill_resume=dict(killed_at=k, checkpoint_every=every,
+                         seconds=[s1, s2], **written_a,
                          restore_s=restore_s, launches=launches_a,
                          host_syncs=h1 + h2, bit_identical=same_a),
         injected_kill=dict(recoveries=len(rb.recoveries),
@@ -1509,10 +1767,10 @@ def ft_app(app, graph, make, want, want_iters, base):
     if not (same_a and same_b):
         raise AssertionError(f"ft {app}: a resumed or recovered run "
                              f"differs from the main run")
-    if lost_a != 0 or ck_a != want_iters:
+    if lost_a != 0 or ck_a != want_iters // every:
         raise AssertionError(f"ft {app}: the resume lost {lost_a} "
                              f"iterations and {ck_a} checkpoints were "
-                             f"written, want 0 and {want_iters}")
+                             f"written, want 0 and {want_iters // every}")
     if ev is None:
         raise AssertionError(f"ft {app}: {len(rb.recoveries)} recoveries, "
                              f"want exactly one")
@@ -2197,7 +2455,7 @@ def main() -> int:
     sweep_cases = phase_sweep()
     lap("sweep")
     sssp_graph, sssp_data, sssp_build_s = grid_sssp_graph()
-    pr_graph, pr_data, pr_build_s = rmat_pagerank_graph()
+    pr_graph, pr_data, pr_build_s, pr_part = rmat_pagerank_graph()
     lap("graphs")
 
     sssp_prog, pr_prog = SSSP(source=0), IncrementalPageRank(tolerance=PR_TOL)
@@ -2212,9 +2470,14 @@ def main() -> int:
         raise AssertionError(f"main path never launched {missing}")
     lap("main")
 
-    sssp_err = check_sssp(sssp_graph, sssp_es, sssp_data)
+    sssp_err, sssp_dijkstra = check_sssp(sssp_graph, sssp_es, sssp_data)
     pr_err = check_pagerank(pr_graph, pr_es, pr_data)
     lap("oracle")
+
+    dist = phase_dist(sssp_graph, sssp_data, sssp_es, sssp_dijkstra,
+                      pr_data, pr_part)
+    del sssp_dijkstra
+    lap("dist")
 
     report, timed = kernel_checks(sssp_graph, sssp_prog, sssp_es,
                                   pr_graph, pr_prog, pr_es)
@@ -2267,7 +2530,7 @@ def main() -> int:
                                      oracle_max_abs_err=pr_err, **pr_run),
                        kernel_cases=report, kernels=kernels,
                        profiles=profiles, engines=engines, apps=apps,
-                       io=io, ft=ft, serve=serve, obs=obs,
+                       io=io, ft=ft, serve=serve, obs=obs, dist=dist,
                        phase_s=phase_s), f, indent=1)
 
     say("done", seconds=f"{time.perf_counter() - t0:.1f}",

@@ -10,16 +10,19 @@ GraphHP), the PyTorch counterpart of ``repro.core.runtime``:
   ``apply_phase``  run the vertex program on a masked vertex set, consuming
                    pending inboxes (Pregel reactivation rules).
 
-All primitives run on partition-major tensors ``(P, ...)`` with every
-partition on one device.  Not ported: the distributed ``gather_table``
-hook, the ``wire_dtype`` quantized exchange and the reference's
-``use_halo=False`` delivery.
+All primitives run on partition-major tensors ``(P, ...)``, so the same
+code serves the single-process run (every partition on one device) and
+the distributed step (:mod:`repro_torch.core.distributed`: a block of
+partitions per rank, with the static sizes of the graph kept global);
+only the export-table gather differs, which is injected as
+``gather_table``.  Not ported: the reference's ``use_halo=False``
+delivery.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -29,7 +32,8 @@ from repro_torch.core.vertex_program import (Channel, SegmentPlan, StepInfo,
                                              segment_plan, segment_sum)
 from repro_torch.kernels.common import SEMIRINGS, maximum, minimum
 
-__all__ = ["Counters", "EngineState", "init_state", "exchange", "deliver",
+__all__ = ["Counters", "EngineState", "init_state", "exchange",
+           "WIRE_DTYPES", "deliver",
            "apply_phase", "merge_inbox", "quiescent", "gather_per_partition",
            "ell_channels", "ell_f32_exact", "ell_slices", "slice_flat",
            "ell_combine_bins", "ell_send_accounting", "ell_group_accounting",
@@ -92,12 +96,16 @@ def _empty_inbox(prog: VertexProgram, p: int, vp: int, device):
 
 def init_state(graph: PartitionedGraph, prog: VertexProgram,
                vdata: Any) -> EngineState:
-    """Run the paper's initialization iteration (superstep 0)."""
+    """Run the paper's initialization iteration (superstep 0).  ``p`` is
+    the leading size of the graph's vertex families: on a rank's block
+    (:func:`repro_torch.core.distributed.block_view`) the block's own
+    partition count."""
     state, out, send, active = prog.init(graph.vertex_gid, graph.vertex_mask,
                                          vdata)
     send = torch.logical_and(send, graph.vertex_mask)
     active = torch.logical_and(active, graph.vertex_mask)
-    p, vp, h, dev = graph.n_partitions, graph.vp, graph.hp, graph.device
+    p, vp, h, dev = (graph.vertex_gid.shape[0], graph.vp, graph.hp,
+                     graph.device)
     halo_out = _map(lambda l: torch.zeros((p, h) + tuple(l.shape[2:]),
                                           dtype=l.dtype, device=dev), out)
     return EngineState(
@@ -114,14 +122,45 @@ def init_state(graph: PartitionedGraph, prog: VertexProgram,
 # exchange: the once-per-global-iteration communication.
 # ---------------------------------------------------------------------------
 
-def exchange(graph: PartitionedGraph, es: EngineState) -> EngineState:
-    """Gather exported out-states through the halo plan (all partitions on
-    one device, so the export table is already global)."""
+#: Wire encodings ``exchange`` accepts: the reference's ``jnp.bfloat16``,
+#: ``jnp.float8_e4m3fn`` and ``jnp.float8_e5m2``.
+WIRE_DTYPES = (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def exchange(graph: PartitionedGraph, es: EngineState,
+             gather_table: Callable[[Any], Any] | None = None,
+             wire_dtype: torch.dtype | None = None) -> EngineState:
+    """Gather exported out-states through the halo plan.
+
+    ``gather_table`` maps the per-partition export tables of this block,
+    a ``(exports, send flags)`` pair of ``(P_local, X, ...)`` tensors, to
+    the global ``(P, X, ...)`` ones: the identity when every partition is
+    on one device, one all-gather in the distributed step.
+
+    ``wire_dtype`` (one of :data:`WIRE_DTYPES`) rounds float payloads to
+    that type before the gather and back after it, as the reference's
+    quantized exchange does; integer leaves travel as they are, decided
+    by each leaf's own dtype (so a genuine ``uint16`` or ``uint8``
+    payload is never decoded).  The byte carrier of the wire is the
+    gather's business (:func:`repro_torch.core.distributed.all_gather_rows`).
+    """
     exports = _map(lambda l: gather_per_partition(l, graph.export_slot),
                    es.export_out)
     exp_send = torch.logical_and(
         gather_per_partition(es.export_send, graph.export_slot),
         graph.export_mask)
+    if wire_dtype is not None:
+        if wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"wire_dtype {wire_dtype} is not one of "
+                             f"{WIRE_DTYPES}")
+        dtypes = {k: l.dtype for k, l in exports.items()}
+        exports = {k: l.to(wire_dtype) if l.dtype.is_floating_point else l
+                   for k, l in exports.items()}
+    if gather_table is not None:
+        exports, exp_send = gather_table((exports, exp_send))
+    if wire_dtype is not None:
+        exports = {k: l.to(dtypes[k]) if dtypes[k].is_floating_point else l
+                   for k, l in exports.items()}
     halo_ptr = graph.halo_ptr.long()
 
     def pull(leaf):
@@ -193,13 +232,38 @@ def ell_channels(graph: PartitionedGraph, prog: VertexProgram,
 
 
 def slice_flat(s: EllSlice, graph: PartitionedGraph, p: int):
-    """Flattened (rows, idx, msk) views of one ELL slice over all ``p``
-    partitions: the build-time flat views (the per-block re-offsetting of
-    the reference's distributed step is not ported yet)."""
-    if p != graph.n_partitions:
-        raise NotImplementedError(
-            "per-block ELL views (the distributed step) are not ported yet")
-    return s.flat_rows, s.flat_idx, s.msk.reshape(-1, s.kb)
+    """Flattened (rows, idx, msk) views of one ELL slice over a block of
+    ``p`` partitions.  When the block is the whole graph these are the
+    build-time flat views.  On a rank's block (``p < n_partitions``) the
+    block-ragged tiles are re-offset with block-local strides, as the
+    reference does inside ``shard_map``: each tile row's partition comes
+    from its block-relative row id (``row // Vp``, the sentinel clipped to
+    the block's last partition, where the mask drops it), sources move
+    by ``partition * stride`` and padded rows get the sentinel ``p * Vp``.
+    The re-offset changes the indices a kernel reads, never its fold
+    order; it is computed once per slice and kept on the graph."""
+    kb = s.kb
+    if p == graph.n_partitions:
+        return s.flat_rows, s.flat_idx, s.msk.reshape(-1, kb)
+    cache = graph.__dict__.setdefault("_block_flat", {})
+    if id(s) not in cache:
+        cache[id(s)] = _block_flat(s, graph, p)
+    return cache[id(s)]
+
+
+def _block_flat(s: EllSlice, graph: PartitionedGraph, p: int):
+    kb = s.kb
+    b = s.rows.shape[0]                   # block rows on this rank
+    ppb = p // b
+    bvp = ppb * graph.vp
+    blk = torch.arange(b, dtype=torch.int32, device=s.rows.device)[:, None]
+    prel = torch.clamp(torch.div(s.rows, graph.vp, rounding_mode="floor"),
+                       0, ppb - 1)
+    pabs = blk * ppb + prel
+    idx = (s.idx + (pabs * s.stride)[..., None]).reshape(-1, kb)
+    rows = torch.where(s.rows < bvp, s.rows + blk * bvp,
+                       p * graph.vp).reshape(-1)
+    return rows, idx, s.msk.reshape(-1, kb)
 
 
 def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -371,10 +435,11 @@ class DensePlan:
 
 def dense_plan(graph: PartitionedGraph) -> DensePlan:
     """The graph's :class:`DensePlan`, built at its first dense delivery
-    and kept on the graph."""
+    and kept on the graph.  ``p`` is the leading size of the vertex
+    families, so the plan kept on a rank's block view is that block's."""
     plan = graph.__dict__.get("_dense_plan")
     if plan is None:
-        p, vp = graph.n_partitions, graph.vp
+        p, vp = graph.vertex_gid.shape[0], graph.vp
         bsz = graph.edge_src.shape[0]
         dev = graph.device
         rows = torch.arange(bsz, dtype=torch.int64, device=dev)[:, None]

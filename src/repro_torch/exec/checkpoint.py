@@ -132,22 +132,33 @@ class CheckpointHook(ExecHook):
     layer records its per-lane convergence mask here); ``restore()`` is
     public so a failure-recovery hook can roll the run back to the latest
     durable checkpoint mid-loop.
+
+    ``placement`` (a :class:`repro_torch.core.distributed.BlockPlacement`,
+    where the reference's hook has ``shardings``) runs the hook on one
+    rank's block: every rank gathers the global state at a save and only
+    the writer rank writes it — the bytes a single-process run would
+    write — and every rank restores the global checkpoint and takes its
+    own block out of it.
     """
 
     def __init__(self, *, key: dict, ckpt_dir: str | None = None,
                  checkpointer: AsyncCheckpointer | None = None,
                  every: int = 1, keep: int = 3, resume: bool = True,
                  template: EngineState | None = None,
+                 placement: Any = None,
                  meta_fn: Callable[[ExecContext], dict] | None = None):
         self.key = dict(key)
-        self._own = checkpointer is None and ckpt_dir is not None
+        writes = placement is None or placement.writer
+        self._own = checkpointer is None and ckpt_dir is not None and writes
         self.checkpointer = (AsyncCheckpointer(ckpt_dir, keep=keep)
-                             if self._own else checkpointer)
+                             if self._own else
+                             checkpointer if writes else None)
         self.base = ckpt_dir if ckpt_dir is not None else getattr(
-            self.checkpointer, "base", None)
+            checkpointer, "base", None)
         self.every = every
         self.resume = resume
         self.template = template
+        self.placement = placement
         self.meta_fn = meta_fn
         self.resumed_from: str | None = None
 
@@ -158,11 +169,18 @@ class CheckpointHook(ExecHook):
         checkpoint, or ``(template, 0, None, 0)`` when none exists."""
         if self.checkpointer is not None:
             self.checkpointer.wait()   # in-flight writes become durable
+        if self.placement is not None:
+            self.placement.barrier()   # ... on the writer rank, for all
         path = latest_checkpoint(self.base) if self.base else None
         if path is None:
             return self.template, 0, None, 0
         validate_key(read_manifest(path).get("meta", {}), self.key, path)
-        es, step = load_checkpoint(path, self.template)
+        if self.placement is None:
+            es, step = load_checkpoint(path, self.template)
+        else:
+            es, step = load_checkpoint(
+                path, self.placement.like(self.template), device="cpu")
+            es = self.placement.take(es)
         return es, int(step), path, checkpoint_bytes(path)
 
     def restore_manifest(self) -> dict | None:
@@ -183,12 +201,15 @@ class CheckpointHook(ExecHook):
                 self.resumed_from = path
 
     def after_step(self, ctx: ExecContext) -> None:
-        if self.checkpointer is not None and \
-                ctx.iteration % self.every == 0:
+        if self.base is None or ctx.iteration % self.every:
+            return
+        es = ctx.es if self.placement is None else \
+            self.placement.gather(ctx.es)          # every rank joins
+        if self.checkpointer is not None:
             meta = {**self.key, "iteration": ctx.iteration}
             if self.meta_fn is not None:
                 meta.update(self.meta_fn(ctx))
-            self.checkpointer.save(ctx.iteration, ctx.es, meta=meta)
+            self.checkpointer.save(ctx.iteration, es, meta=meta)
 
     def on_exit(self, ctx: ExecContext) -> None:
         if self.checkpointer is not None:

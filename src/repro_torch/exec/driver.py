@@ -66,8 +66,9 @@ def run_engine(
     hooks: Sequence[ExecHook] = (),
     es: EngineState | None = None,
 ) -> ExecContext:
-    """Run ``policy`` to quiescence; returns the final :class:`ExecContext`
-    (``ctx.es``, ``ctx.iteration``).  ``es`` seeds the loop (default:
+    """Run ``policy`` to quiescence (``policy.halt`` when it has one);
+    returns the final :class:`ExecContext` (``ctx.es``,
+    ``ctx.iteration``).  ``es`` seeds the loop (default:
     ``policy.init``)."""
     if es is None:
         es = policy.init(graph, prog, vdata)
@@ -76,8 +77,12 @@ def run_engine(
     for h in hooks:
         h.on_start(ctx)
 
-    while (ctx.iteration < max_iters
-           and not host_read(quiescent(prog, ctx.es))):
+    def done(es) -> bool:
+        if policy.halt is not None:
+            return policy.halt(prog, es)
+        return host_read(quiescent(prog, es))
+
+    while ctx.iteration < max_iters and not done(ctx.es):
         ctx.tick += 1
         # evaluate every hook (clocks must advance even when another hook
         # consumes the tick), then skip the step if any said so

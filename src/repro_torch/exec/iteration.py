@@ -14,7 +14,7 @@ nothing here loops to quiescence.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -64,10 +64,13 @@ def _bump(es: EngineState, pseudo: bool) -> EngineState:
     return dataclasses.replace(es, counters=c)
 
 
-def exchange_phase(graph, prog, es) -> EngineState:
+def exchange_phase(graph, prog, es, gather_table=None,
+                   wire_dtype=None) -> EngineState:
     """The one communication of a superstep / global iteration: gather
-    export buffers through the halo plan, then clear them."""
-    return reset_export(prog, exchange(graph, es))
+    export buffers through the halo plan (across ranks through
+    ``gather_table``, quantized to ``wire_dtype``), then clear them."""
+    es = exchange(graph, es, gather_table, wire_dtype=wire_dtype)
+    return reset_export(prog, es)
 
 
 def bsp_delivery(graph, prog, es, use_ell: bool = True,
@@ -128,6 +131,7 @@ def bsp_superstep(
     prog: VertexProgram,
     es: EngineState,
     vdata: Any,
+    gather_table: Callable | None = None,
     use_ell: bool = True,
     collect_metrics: bool = True,
 ) -> EngineState:
@@ -137,7 +141,7 @@ def bsp_superstep(
     half can run through its ELL layout; counters are unchanged, float
     'sum' inboxes may differ from the dense pass in the last bit (another
     fold order)."""
-    es = exchange_phase(graph, prog, es)
+    es = exchange_phase(graph, prog, es, gather_table)
     es = bsp_delivery(graph, prog, es, use_ell, collect_metrics)
     return bsp_compute(graph, prog, es, vdata)
 
@@ -147,13 +151,14 @@ def am_superstep(
     prog: VertexProgram,
     es: EngineState,
     vdata: Any,
+    gather_table: Callable | None = None,
     use_ell: bool = True,
     collect_metrics: bool = True,
 ) -> EngineState:
     """One AM-Hama superstep: Hama's cadence + in-memory delivery between
     two ordered half-blocks A|B of each partition's slots (the Grace
     mechanism, vectorized — see :mod:`repro_torch.core.engine_am`)."""
-    es = exchange_phase(graph, prog, es)
+    es = exchange_phase(graph, prog, es, gather_table)
     es = bsp_delivery(graph, prog, es, use_ell, collect_metrics)
 
     slot = torch.arange(graph.vp, device=graph.device)[None, :]
@@ -177,7 +182,9 @@ def hybrid_iteration(
     prog: VertexProgram,
     es: EngineState,
     vdata: Any,
+    gather_table: Callable | None = None,
     max_local_steps: int = 100_000,
+    wire_dtype=None,
     use_ell: bool = True,
     collect_metrics: bool = True,
 ) -> EngineState:
@@ -187,9 +194,11 @@ def hybrid_iteration(
     fused `pr_step` / `min_step` kernels for programs declaring
     ``fused_kernel``; ``collect_metrics=False`` drops the paper's message
     accounting (counters other than iterations/pseudo-supersteps stay put).
+    ``gather_table`` and ``wire_dtype`` go to the exchange
+    (:func:`repro_torch.core.runtime.exchange`).
     """
     # -- 1. the one exchange ----------------------------------------------
-    es = exchange_phase(graph, prog, es)
+    es = exchange_phase(graph, prog, es, gather_table, wire_dtype=wire_dtype)
     es = hybrid_remote_delivery(graph, prog, es, use_ell=use_ell,
                                 collect_metrics=collect_metrics)
     # -- 2. global phase: boundary vertices, exactly once -----------------

@@ -30,41 +30,48 @@ class EnginePolicy:
     ``init(graph, prog, vdata) -> EngineState`` builds iteration 0's state;
     ``step(graph, prog, es, vdata) -> EngineState`` advances one
     synchronization-delimited unit and must increment
-    ``counters.iterations`` by exactly 1.
+    ``counters.iterations`` by exactly 1.  ``halt(prog, es) -> bool`` is
+    the termination check; ``None`` reads the engine state's own
+    ``quiescent`` (the distributed step's halt is the cross-rank
+    :func:`repro_torch.core.distributed.dist_quiescent`).
     """
 
     name: str
     init: Callable
     step: Callable
+    halt: Callable | None = None
 
 
-def bsp_policy(use_ell: bool = True,
-               collect_metrics: bool = True) -> EnginePolicy:
+def bsp_policy(use_ell: bool = True, collect_metrics: bool = True,
+               gather_table: Callable | None = None) -> EnginePolicy:
     """Hama: one exchange + one bulk Compute() per superstep."""
     return EnginePolicy(
         name="bsp", init=_state_init,
-        step=partial(_bsp_step, use_ell=use_ell,
+        step=partial(_bsp_step, gather_table=gather_table, use_ell=use_ell,
                      collect_metrics=collect_metrics))
 
 
-def am_policy(use_ell: bool = True,
-              collect_metrics: bool = True) -> EnginePolicy:
+def am_policy(use_ell: bool = True, collect_metrics: bool = True,
+              gather_table: Callable | None = None) -> EnginePolicy:
     """AM-Hama: Hama's cadence + in-memory same-superstep local delivery."""
     return EnginePolicy(
         name="am", init=_state_init,
-        step=partial(_am_step, use_ell=use_ell,
+        step=partial(_am_step, gather_table=gather_table, use_ell=use_ell,
                      collect_metrics=collect_metrics))
 
 
 def hybrid_policy(use_ell: bool = True, collect_metrics: bool = True,
-                  max_local_steps: int = 100_000) -> EnginePolicy:
+                  max_local_steps: int = 100_000,
+                  gather_table: Callable | None = None,
+                  wire_dtype=None) -> EnginePolicy:
     """GraphHP: one exchange per global iteration, then pseudo-supersteps
     to per-partition quiescence (fused kernel local phase where eligible)."""
     return EnginePolicy(
         name="hybrid",
         init=partial(_hybrid_init, use_ell=use_ell,
                      collect_metrics=collect_metrics),
-        step=partial(_hybrid_step, max_local_steps=max_local_steps,
+        step=partial(_hybrid_step, gather_table=gather_table,
+                     max_local_steps=max_local_steps, wire_dtype=wire_dtype,
                      use_ell=use_ell, collect_metrics=collect_metrics))
 
 

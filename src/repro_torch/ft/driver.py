@@ -42,8 +42,9 @@ A port of ``repro.ft.driver``.  Each step is the hybrid policy's step
 spans for every iteration, hook call and recovery, and a metrics registry
 filled at exit.  The straggler flags always come from the counters (the
 reference reads them off the registry when one is passed: the same
-numbers).  The reference's ``step_fn`` /
-``es_shardings`` (the distributed step) are not ported yet.
+numbers).  ``step_fn`` takes the distributed step
+(:mod:`repro_torch.core.distributed`) with ``es_placement`` in place of
+the reference's ``es_shardings``.
 """
 
 from __future__ import annotations
@@ -248,6 +249,8 @@ def run_hybrid_ft(
     checkpoint_every: int = 1,
     keep: int = 3,
     resume: bool = True,
+    step_fn=None,
+    es_placement=None,
     max_iters: int = 100_000,
     max_local_steps: int = 100_000,
     use_ell: bool = True,
@@ -266,7 +269,20 @@ def run_hybrid_ft(
 
     Each step is one global iteration of the hybrid policy
     (:func:`~repro_torch.exec.iteration.hybrid_iteration`), as in
-    :func:`~repro_torch.core.engine_hybrid.run_hybrid`.
+    :func:`~repro_torch.core.engine_hybrid.run_hybrid`, or ``step_fn(graph,
+    es) -> es``.  A ``step_fn`` with ``init(graph, vdata)`` and
+    ``quiescent(prog, es)`` methods supplies the starting state and the
+    halt rule as well: the distributed step
+    (:func:`~repro_torch.core.distributed.make_dist_hybrid_step`) does,
+    since on a rank's block (``graph`` from ``block_view``) both need the
+    other ranks.  ``es_placement`` (a
+    :class:`~repro_torch.core.distributed.BlockPlacement`) replaces the
+    reference's ``es_shardings``: JAX places a global array on the mesh,
+    while here each rank holds only its block, so the placement says how
+    to gather the global state for a save (rank 0 writes it, keyed to the
+    global graph: the bytes a single-process run writes) and how to take
+    the rank's block out of a restored one (every rank restores).  Every
+    rank of the group calls ``run_hybrid_ft`` with the same arguments.
 
     Checkpoints land under ``ckpt_dir`` every ``checkpoint_every`` global
     iterations: the state is copied to the host in the loop's thread and
@@ -301,10 +317,11 @@ def run_hybrid_ft(
     Both default to off, adding nothing to the run.
 
     Returns:
-        An :class:`FTRunResult`: the final ``EngineState`` (``es``) and
-        iteration count, every :class:`RecoveryEvent` and straggler
-        ``ShardFlag`` observed, ``resumed_from`` (checkpoint dir this run
-        restored from, or ``None`` for a cold start), the monitor's final
+        An :class:`FTRunResult`: the final ``EngineState`` (``es``; this
+        rank's block under ``es_placement``) and iteration count, every
+        :class:`RecoveryEvent` and straggler ``ShardFlag`` observed,
+        ``resumed_from`` (checkpoint dir this run restored from, or
+        ``None`` for a cold start), the monitor's final
         reassignment ``epoch``, and the populated ``registry`` (when one
         was passed).
 
@@ -318,12 +335,20 @@ def run_hybrid_ft(
     check_graph_device(graph, device)
     policy = hybrid_policy(use_ell=use_ell, collect_metrics=collect_metrics,
                            max_local_steps=max_local_steps)
-    template = init_hybrid(graph, prog, vdata, use_ell=use_ell,
-                           collect_metrics=collect_metrics)
-    ckpt = CheckpointHook(key=checkpoint_key(graph, prog, vdata),
+    if step_fn is not None:
+        policy = dataclasses.replace(
+            policy, step=lambda g, p, e, v: step_fn(g, e),
+            halt=getattr(step_fn, "quiescent", None))
+    if hasattr(step_fn, "init"):
+        template = step_fn.init(graph, vdata)
+    else:
+        template = init_hybrid(graph, prog, vdata, use_ell=use_ell,
+                               collect_metrics=collect_metrics)
+    key_graph = graph if es_placement is None else es_placement.graph
+    ckpt = CheckpointHook(key=checkpoint_key(key_graph, prog, vdata),
                           ckpt_dir=ckpt_dir, checkpointer=checkpointer,
                           every=checkpoint_every, keep=keep, resume=resume,
-                          template=template)
+                          template=template, placement=es_placement)
 
     # --- simulated cluster: contiguous partition blocks per worker --------
     P = graph.n_partitions
@@ -346,10 +371,14 @@ def run_hybrid_ft(
     ctx = run_engine(graph, prog, policy, vdata, max_iters=max_iters,
                      hooks=hooks, es=template)
 
+    counters = ctx.es.counters
+    if es_placement is not None:      # the global per-partition counts
+        counters = dataclasses.replace(counters, pseudo_supersteps=(
+            es_placement.gather(counters.pseudo_supersteps)))
     if registry is not None:
         from repro_torch.obs.metrics import (record_checkpointer,
                                              record_engine_counters)
-        record_engine_counters(registry, ctx.es.counters)
+        record_engine_counters(registry, counters)
         if ckpt.checkpointer is not None:
             record_checkpointer(registry, ckpt.checkpointer)
         if balance is not None:
@@ -357,7 +386,7 @@ def run_hybrid_ft(
         registry.set_counter("ft.recoveries", float(len(fault.recoveries)))
         registry.set_counter("ft.iterations_lost", float(sum(
             r.iterations_lost for r in fault.recoveries)))
-    pseudo = ctx.es.counters.pseudo_supersteps.cpu().numpy()
+    pseudo = counters.pseudo_supersteps.cpu().numpy()
     flags = flag_slow_shards(pseudo, balance=balance,
                              factor=straggler_factor)
     return FTRunResult(es=ctx.es, iterations=ctx.iteration,

@@ -32,10 +32,12 @@ only when a span is actually being recorded.
 FT fault hook) so its per-method work shows up as ``cat="hook"`` spans —
 that is how checkpoint save time is separated from step time in a trace.
 
-The port of ``repro.obs.trace``.  ``traced_dist_step`` waits for the
-distributed step, and ``phased_run(wire_dtype=...)`` for its quantized
-exchange: the port's ``runtime.exchange`` has no wire encoding yet.  The
-byte accounting under a ``wire_dtype`` is host arithmetic and is here.
+:func:`traced_dist_step` wraps the distributed step
+(:mod:`repro_torch.core.distributed`): one ``dist_step`` span per global
+iteration on rank 0, with each rank's exchange bytes, halo slots and
+pseudo-supersteps gathered as small integer vectors.
+
+The port of ``repro.obs.trace``.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from repro_torch.obs import clock
 __all__ = ["Span", "Tracer", "TraceHook", "RunTraceHook", "trace_hooks",
            "wrap_hooks", "exchange_bytes", "exchange_bytes_per_partition",
            "halo_slots_per_partition", "phased_run", "SuperstepRecord",
-           "PhasedRunResult", "COMM_PHASES"]
+           "PhasedRunResult", "COMM_PHASES", "traced_dist_step"]
 
 
 @dataclasses.dataclass
@@ -153,8 +155,9 @@ def exchange_bytes_per_partition(graph, es, wire_dtype=None) -> np.ndarray:
     """(P,) bytes each partition contributes to the next exchange: its
     valid *sending* export slots times the per-slot payload bytes of every
     exported leaf (after ``wire_dtype`` quantization, as the reference's
-    ``repro.core.runtime.exchange`` encodes the wire)."""
-    p = torch.arange(graph.n_partitions, device=graph.device)[:, None]
+    ``repro.core.runtime.exchange`` encodes the wire).  On a rank's block
+    of partitions, the block's partitions."""
+    p = torch.arange(es.export_send.shape[0], device=graph.device)[:, None]
     sending = torch.logical_and(es.export_send[p, graph.export_slot.long()],
                                 graph.export_mask)          # (P, X)
     n_sending = sending.sum(dim=1).cpu().numpy()            # (P,)
@@ -397,7 +400,7 @@ class PhasedRunResult:
 
 
 def _phase_fns(graph, prog, vdata, engine: str, use_ell: bool,
-               collect_metrics: bool, max_local_steps: int
+               collect_metrics: bool, max_local_steps: int, wire_dtype
                ) -> list[tuple[str, Callable]]:
     from repro_torch.exec import iteration as it
 
@@ -410,7 +413,8 @@ def _phase_fns(graph, prog, vdata, engine: str, use_ell: bool,
         ]
     if engine == "hybrid":
         return [
-            ("exchange", lambda es: it.exchange_phase(graph, prog, es)),
+            ("exchange", lambda es: it.exchange_phase(
+                graph, prog, es, wire_dtype=wire_dtype)),
             ("delivery", lambda es: it.hybrid_remote_delivery(
                 graph, prog, es, use_ell, collect_metrics)),
             ("global", lambda es: it.hybrid_global_phase(
@@ -437,33 +441,26 @@ def phased_run(graph, prog, engine: str = "hybrid", vdata: Any = None, *,
     ``run_bsp`` / ``run_hybrid`` — only the synchronization between phases
     costs extra.  Returns a :class:`PhasedRunResult`; with ``tracer`` the
     same data lands as per-phase + per-superstep spans.  The graph's
-    device is the run's.
-
-    Raises:
-        NotImplementedError: ``wire_dtype`` is set (the quantized exchange
-            is not ported yet).
+    device is the run's.  ``wire_dtype`` quantizes the hybrid exchange
+    (:func:`repro_torch.core.runtime.exchange`).
     """
     from repro_torch.core.runtime import quiescent
     from repro_torch.exec.policy import make_policy
     from repro_torch.exec.syncs import host_read
 
-    if wire_dtype is not None:
-        raise NotImplementedError(
-            "phased_run(wire_dtype=...): the port's exchange has no wire "
-            "encoding yet (it comes with the distributed step)")
     knobs = dict(use_ell=use_ell, collect_metrics=collect_metrics)
     if engine == "hybrid":
         knobs["max_local_steps"] = max_local_steps
     policy = make_policy(engine, **knobs)
     phases = _phase_fns(graph, prog, vdata, engine, use_ell,
-                        collect_metrics, max_local_steps)
+                        collect_metrics, max_local_steps, wire_dtype)
 
     es = policy.init(graph, prog, vdata)
     records: list[SuperstepRecord] = []
     step = 0
     while step < max_iters and not host_read(quiescent(prog, es)):
         step += 1
-        xb = exchange_bytes(graph, es)
+        xb = exchange_bytes(graph, es, wire_dtype)
         before = _counters_host(es.counters)
         secs: dict[str, float] = {}
         t_start = clock.perf_counter()
@@ -492,3 +489,47 @@ def phased_run(graph, prog, engine: str = "hybrid", vdata: Any = None, *,
                        **deltas)
     return PhasedRunResult(engine=engine, es=es, iterations=step,
                            records=records)
+
+
+def traced_dist_step(step: Callable, tracer: Tracer, group=None,
+                     tid: int = 0, wire_dtype=None) -> Callable:
+    """Wrap a distributed step ``(graph, es) -> es`` (one rank's block)
+    with span recording: rank 0 records one ``dist_step`` span per global
+    iteration whose args carry each rank's exchange bytes, halo slots and
+    pseudo-supersteps (``*_per_block``, rank order), gathered from every
+    rank as one small integer vector.  The span closes after
+    ``torch.cuda.synchronize``.  Used by
+    :func:`repro_torch.core.distributed.make_dist_hybrid_step` when a
+    tracer is passed; every rank must wrap its step, since the gather is
+    a collective."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import all_gather_rows
+
+    def wrapped(graph, es):
+        if not tracer.enabled:
+            return step(graph, es)
+        xb = int(exchange_bytes_per_partition(graph, es, wire_dtype).sum())
+        halo = int(halo_slots_per_partition(graph).sum())
+        before = _counters_host(es.counters)
+        t0 = clock.perf_counter()
+        es = step(graph, es)
+        _wait(es.send)
+        dur = clock.perf_counter() - t0
+        after = _counters_host(es.counters)
+        pseudo = int((after["pseudo_supersteps"]
+                      - before["pseudo_supersteps"]).sum())
+        mine = torch.tensor([[xb, halo, pseudo]], dtype=torch.int64)
+        per = all_gather_rows(mine, group).numpy()    # (world, 3)
+        if dist.get_rank(group) == 0:
+            tracer.add(
+                "dist_step", t0, dur, cat="superstep", tid=tid,
+                iteration=after["iterations"],
+                exchange_bytes=int(per[:, 0].sum()),
+                exchange_bytes_per_block=per[:, 0].tolist(),
+                halo_slots_per_block=per[:, 1].tolist(),
+                pseudo_supersteps_per_block=per[:, 2].tolist(),
+                net_messages=after["net_messages"] - before["net_messages"])
+        return es
+
+    return wrapped

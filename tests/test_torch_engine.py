@@ -235,12 +235,23 @@ def test_cuda_run_matches_cpu_run(app):
 
 
 def test_unported_paths_raise():
+    from repro_torch.core.distributed import block_view
     from repro_torch.core.runtime import slice_flat
 
     _, graph = _graphs("sssp")
-    # per-block ELL views belong to the distributed step, not ported yet
-    with pytest.raises(NotImplementedError, match="per-block ELL views"):
-        slice_flat(graph.local_ell[0], graph, graph.n_partitions // 2)
+    # per-block ELL views are the distributed step's (ported): on a half
+    # block the rows are block-local, padded rows carry the sentinel p*Vp
+    edges, n, part, w, _ = fixture("sssp")
+    g2 = build_partitioned_graph(edges, n, part, weights=w, edge_blocks=2,
+                                 device="cpu")
+    half = block_view(g2, 1, 2, "cpu")
+    p = g2.n_partitions // 2
+    rows, idx, msk = slice_flat(half.local_ell[0], half, p)
+    assert rows.shape[0] == idx.shape[0] == msk.shape[0]
+    assert int(rows.max()) <= p * g2.vp
+    np.testing.assert_array_equal(
+        rows.numpy(), g2.local_ell[0].flat_rows.numpy()[-len(rows):]
+        - p * g2.vp)
     with pytest.raises(ValueError, match="graph lives on"):
         run_hybrid(graph, SSSP(source=0), device="meta")
     if not torch.cuda.is_available():

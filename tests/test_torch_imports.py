@@ -9,9 +9,9 @@ import sys
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "src")
 
-# the graph I/O, checkpoint, fault-tolerance, observability and serving
-# modules: each must be found by the walk below, and import clean like the
-# rest
+# the graph I/O, checkpoint, fault-tolerance, observability, serving and
+# distributed modules: each must be found by the walk below, and import
+# clean like the rest
 IO_FT_MODULES = (
     "repro_torch.obs", "repro_torch.obs.clock", "repro_torch.obs.metrics",
     "repro_torch.obs.export", "repro_torch.obs.trace",
@@ -26,7 +26,7 @@ IO_FT_MODULES = (
     "repro_torch.ft", "repro_torch.ft.heartbeat", "repro_torch.ft.inject",
     "repro_torch.ft.straggler", "repro_torch.ft.elastic",
     "repro_torch.ft.driver",
-    "repro_torch.partition.quality",
+    "repro_torch.partition.quality", "repro_torch.core.distributed",
 )
 
 _PROBE = """

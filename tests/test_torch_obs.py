@@ -396,10 +396,22 @@ def test_phased_hybrid_fewer_barriers_than_bsp(web, jax_graphs):
         assert _records(res) == _records(ref)
 
 
-def test_phased_run_refuses_wire_dtype(road):
-    with pytest.raises(NotImplementedError, match="wire"):
+def test_phased_run_refuses_wire_dtype(road, jax_graphs):
+    """A wire dtype outside ``runtime.WIRE_DTYPES`` is refused; a bfloat16
+    wire runs, with the reference's records superstep by superstep."""
+    import jax.numpy as jnp
+    import torch
+
+    with pytest.raises(ValueError, match="wire_dtype"):
         phased_run(road, SSSP(source=0), "hybrid", None,
                    wire_dtype="bfloat16")
+    res = phased_run(road, SSSP(source=0), "hybrid", None,
+                     wire_dtype=torch.bfloat16)
+    ref = jax_trace.phased_run(jax_graphs["road"], JaxSSSP(source=0),
+                               "hybrid", None, wire_dtype=jnp.bfloat16)
+    assert _records(res) == _records(ref)
+    np.testing.assert_array_equal(res.es.state["dist"].numpy(),
+                                  np.asarray(ref.es.state["dist"]))
 
 
 def test_report_matches_reference(capsys):
