@@ -16,10 +16,10 @@ tensor leaf on dim 0 — vertex families by partition, edge families and
 ELL tiles by block row — and keeps the static sizes global
 (``n_partitions``, ``n_vertices``, ``vp``, ``hp``, ...), as inside
 ``shard_map``.  The runtime reads a block's own partition count off its
-leading sizes, and ``runtime.slice_flat`` re-offsets the ELL tiles to
-block-local strides, so each rank runs the same three CUDA kernels on
-block-local views, in the same fold order: the ranks' result is
-bit-identical to the single-process run.
+leading sizes, and :func:`block_view` gives each ELL slice flat views
+re-offset to block-local strides (``runtime.block_flat``), so each rank
+runs the same three CUDA kernels on block-local views, in the same fold
+order: the ranks' result is bit-identical to the single-process run.
 
 The wire: every collective moves raw bytes (``.view(torch.uint8)`` of
 contiguous leaves, packed into one buffer per call), so one path carries
@@ -28,7 +28,8 @@ every dtype on gloo and NCCL alike — gloo refuses ``uint16`` and
 payload would need.  The backend and device are the caller's choice:
 
 * ``nccl`` — rank ``r`` on ``cuda:r``; refused when the host has fewer
-  cards than ranks;
+  cards than ranks (``gpu``-marked tests cover it: they need a card per
+  rank, and the CPU tests use gloo alone);
 * ``gloo`` with CUDA tensors — several ranks may share one card; each
   collective stages its bytes through pinned host buffers (counted in
   ``COMM["staged_bytes"]``);
@@ -57,7 +58,8 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import _flatten_with_names, _unflatten
 from repro_torch.core.graph import EllSlice, PartitionedGraph
-from repro_torch.core.runtime import Counters, EngineState, quiescent
+from repro_torch.core.runtime import (Counters, EngineState, block_flat,
+                                      quiescent)
 from repro_torch.core.vertex_program import VertexProgram
 from repro_torch.device import resolve_device
 from repro_torch.exec.driver import run_engine
@@ -136,13 +138,33 @@ def block_view(graph: PartitionedGraph, rank: int, world: int,
     """Rank ``rank``'s block of ``graph`` on ``device`` (``cuda`` unless
     ``"cpu"`` is passed): every tensor leaf sliced on dim 0 — the vertex
     and halo families by partition, the edge families and every
-    ``EllSlice`` leaf by block row (the flat views too, which the block
-    path re-derives) — and the static fields kept global, as
+    ``EllSlice`` tile by block row — and the static fields kept global, as
     ``shard_map`` shards the reference's graph.  The slices are taken on
     ``graph``'s device before the copy, so a host graph is never copied
-    to the card whole."""
+    to the card whole.
+
+    Each ``EllSlice``'s flat views are the block's own
+    (:func:`~repro_torch.core.runtime.block_flat`, computed on ``device``
+    from the block's tiles), not copies of the global ones: those hold
+    global offsets, which no block reads."""
     check_world(graph, world)
-    return _map_tree(_cut(rank, world, resolve_device(device)), graph)
+    cut = _cut(rank, world, resolve_device(device))
+    if world == 1:
+        return _map_tree(cut, graph)
+    none = torch.empty((0,), dtype=torch.int32)
+    bare = lambda ells: tuple(dataclasses.replace(
+        s, flat_rows=none, flat_idx=none) for s in ells)
+    bg = _map_tree(cut, dataclasses.replace(
+        graph, local_ell=bare(graph.local_ell),
+        remote_ell=bare(graph.remote_ell)))
+    p = graph.n_partitions // world
+    own = lambda ells: tuple(dataclasses.replace(
+        s, **dict(zip(("flat_rows", "flat_idx"), block_flat(s, graph.vp, p))))
+        for s in ells)
+    bg = dataclasses.replace(bg, local_ell=own(bg.local_ell),
+                             remote_ell=own(bg.remote_ell))
+    bg.__dict__["_block_local"] = True       # read by runtime.slice_flat
+    return bg
 
 
 def block_state(es, rank: int, world: int, device=None):
@@ -160,36 +182,40 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
-def _all_gather_bytes(buf: torch.Tensor, group) -> torch.Tensor:
+def _gather_bytes(buf: torch.Tensor, group, dst: int | None):
     """(n,) uint8 on every rank -> (world, n) uint8, rank order, on the
-    device of ``buf``."""
+    device of ``buf``: on every rank (``dst`` None, one all-gather), or on
+    rank ``dst`` of ``group`` alone (one gather; None on the others)."""
     world = dist.get_world_size(group)
     n = buf.numel()
-    # the same collective, under the name newer releases give it
-    gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    here = dst is None or dist.get_rank(group) == dst
     COMM["collectives"] += 1
     COMM["wire_bytes"] += world * n
-    if _staged(buf, group):
-        host = torch.empty((n,), dtype=torch.uint8, pin_memory=True)
-        host.copy_(buf)
-        out = torch.empty((world * n,), dtype=torch.uint8, pin_memory=True)
-        gather(out, host, group=group)
-        COMM["staged_bytes"] += n + world * n
-        return out.to(buf.device).reshape(world, n)
-    out = torch.empty((world * n,), dtype=torch.uint8, device=buf.device)
-    gather(out, buf, group=group)
-    return out.reshape(world, n)
+    staged = _staged(buf, group)
+    src = buf
+    if staged:
+        src = torch.empty((n,), dtype=torch.uint8, pin_memory=True)
+        src.copy_(buf)
+        COMM["staged_bytes"] += n + (world * n if here else 0)
+    out = (torch.empty((world * n,), dtype=torch.uint8, device=src.device,
+                       pin_memory=staged) if here else None)
+    if dst is None:
+        # the name both torch 2.11 and 2.13 have (2.13 forwards it to
+        # ``all_gather_single``, which 2.11 lacks, with a FutureWarning)
+        dist.all_gather_into_tensor(out, src, group=group)
+    else:
+        dist.gather(src, list(out.chunk(world)) if here else None,
+                    dst=dist.get_global_rank(group or dist.group.WORLD, dst),
+                    group=group)
+    return None if out is None else out.to(buf.device).reshape(world, n)
 
 
-def all_gather_rows(tree, group=None):
-    """Every tensor leaf ``(n, ...)`` of ``tree`` gathered along dim 0 in
-    rank order, ``(world * n, ...)`` — one collective for the whole tree,
-    its leaves packed as raw bytes, so every dtype (bool, uint16,
-    bfloat16, float8) takes the same path on every backend.  Every rank
-    passes leaves of the same shapes and dtypes."""
+def _gather_rows(tree, group, dst: int | None):
     leaves = _tree_leaves(tree)
     parts = [l.contiguous().reshape(-1).view(torch.uint8) for l in leaves]
-    out = _all_gather_bytes(torch.cat(parts), group)
+    out = _gather_bytes(torch.cat(parts), group, dst)
+    if out is None:
+        return None
     world, res, off = out.shape[0], [], 0
     for l, p in zip(leaves, parts):
         # a fresh buffer: the view as ``l.dtype`` needs aligned rows
@@ -200,6 +226,15 @@ def all_gather_rows(tree, group=None):
             (world * l.shape[0],) + tuple(l.shape[1:])))
         off += p.numel()
     return _unflatten(tree, iter(res))
+
+
+def all_gather_rows(tree, group=None):
+    """Every tensor leaf ``(n, ...)`` of ``tree`` gathered along dim 0 in
+    rank order, ``(world * n, ...)`` — one collective for the whole tree,
+    its leaves packed as raw bytes, so every dtype (bool, uint16,
+    bfloat16, float8) takes the same path on every backend.  Every rank
+    passes leaves of the same shapes and dtypes."""
+    return _gather_rows(tree, group, None)
 
 
 def _all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -216,12 +251,16 @@ def _all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def gather_state(es_block: EngineState, group=None) -> EngineState:
-    """The global engine state rebuilt from every rank's block (one
-    all-gather; the 0-dim counters are replicated and kept), on the
-    block's device — for checks and checkpoints.  Every rank calls it."""
+def gather_state(es_block: EngineState, group=None) -> EngineState | None:
+    """The global engine state rebuilt from every rank's block (the 0-dim
+    counters are replicated and kept) on rank 0 of ``group`` alone, on
+    its block's device — for checks and checkpoints; None on every other
+    rank.  Every rank calls it (one gather)."""
     parts = [l for l in _tree_leaves(es_block) if l.dim() > 0]
-    gathered = iter(all_gather_rows(parts, group))
+    gathered = _gather_rows(parts, group, 0)
+    if gathered is None:
+        return None
+    gathered = iter(gathered)
     return _map_tree(lambda t: t if t.dim() == 0 else next(gathered),
                      es_block)
 
@@ -270,13 +309,16 @@ class DistHybridStep:
     ``step(graph, es) -> es`` (see :func:`make_dist_hybrid_step`), with
     the two other parts of a run that need the ranks: :meth:`init` and
     :meth:`quiescent`.  :meth:`policy` packs all three for
-    :func:`repro_torch.exec.driver.run_engine`."""
+    :func:`repro_torch.exec.driver.run_engine`; ``placement`` (a
+    :class:`BlockPlacement`, or None) is where this rank's state lives,
+    for :func:`repro_torch.ft.run_hybrid_ft`."""
 
     def __init__(self, prog: VertexProgram, group=None, vdata: Any = None,
                  max_local_steps: int = 10_000, wire_dtype=None,
                  use_ell: bool = True, collect_metrics: bool = True,
-                 tracer=None):
+                 tracer=None, placement: "BlockPlacement | None" = None):
         self.prog, self.group, self.vdata = prog, group, vdata
+        self.placement = placement
         self.use_ell, self.collect_metrics = use_ell, collect_metrics
         self._kw = dict(gather_table=partial(all_gather_rows, group=group),
                         max_local_steps=max_local_steps,
@@ -324,7 +366,9 @@ class DistHybridStep:
 def make_dist_hybrid_step(prog: VertexProgram, group=None, vdata: Any = None,
                           max_local_steps: int = 10_000, wire_dtype=None,
                           use_ell: bool = True, collect_metrics: bool = True,
-                          tracer=None) -> DistHybridStep:
+                          tracer=None,
+                          placement: "BlockPlacement | None" = None
+                          ) -> DistHybridStep:
     """The distributed hybrid step for this rank: ``step(graph, es) ->
     es`` runs one global iteration on the rank's block (``graph`` from
     :func:`block_view`, ``es`` a block state from :meth:`~DistHybridStep.
@@ -343,26 +387,31 @@ def make_dist_hybrid_step(prog: VertexProgram, group=None, vdata: Any = None,
 
     ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`) wraps the step
     with :func:`repro_torch.obs.trace.traced_dist_step`: rank 0 records
-    one ``dist_step`` span per global iteration.
+    one ``dist_step`` span per global iteration.  ``placement`` (a
+    :class:`BlockPlacement` over the same group) lets
+    :func:`repro_torch.ft.run_hybrid_ft` checkpoint and restore the
+    rank's block as ``step_fn``.
 
     Raises (when called): ``ValueError`` if the world does not divide
     ``n_partitions`` and ``n_blocks``, as the reference does.
     """
     return DistHybridStep(prog, group, vdata, max_local_steps, wire_dtype,
-                          use_ell, collect_metrics, tracer)
+                          use_ell, collect_metrics, tracer, placement)
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockPlacement:
     """Where a rank's engine state lives, for
-    :func:`repro_torch.ft.run_hybrid_ft` (``es_placement=``, in place of
-    the reference's ``es_shardings``): ``gather`` rebuilds the global
-    state from every rank's block (a collective), ``take`` cuts this
-    rank's block out of a restored global state onto its device.
-    ``graph`` is the global graph the checkpoints are keyed to (the host
-    copy the ranks were given), ``writer`` whether this rank writes
-    them; ``barrier`` holds the ranks until the writer's checkpoints are
-    durable.  ``gather`` takes any tree of partition-major tensors."""
+    :func:`repro_torch.ft.run_hybrid_ft` (carried by the distributed step,
+    in place of the reference's ``es_shardings``): ``gather`` rebuilds
+    the global state from every rank's block on the writer rank alone (a
+    collective; None on the other ranks), ``take`` cuts this rank's block
+    out of a restored global state onto its device.  ``graph`` is the
+    global graph the checkpoints are keyed to (the host copy the ranks
+    were given), ``writer`` whether this rank writes them; ``barrier``
+    holds the ranks until the writer's checkpoints are durable.
+    ``gather`` / ``all_gather`` take any tree of partition-major
+    tensors."""
 
     rank: int
     world: int
@@ -374,8 +423,13 @@ class BlockPlacement:
     def writer(self) -> bool:
         return self.rank == 0
 
-    def gather(self, es_block: EngineState) -> EngineState:
-        return _tree_to(gather_state(es_block, self.group), "cpu")
+    def gather(self, es_block: EngineState) -> EngineState | None:
+        es = gather_state(es_block, self.group)
+        return None if es is None else _tree_to(es, "cpu")
+
+    def all_gather(self, tree):
+        """``tree`` gathered on every rank, on the host."""
+        return _tree_to(all_gather_rows(tree, self.group), "cpu")
 
     def take(self, es: EngineState) -> EngineState:
         return block_state(es, self.rank, self.world, self.device)
@@ -677,7 +731,7 @@ def _hybrid_rank(rank, world, group, device, graph, prog, vdata, knobs,
                                     if device.type == "cuda" else 0))
     es = gather_state(ctx.es, group)
     return dict(stats, iterations=ctx.iteration,
-                es=_tree_to(es, "cpu") if rank == 0 else None,
+                es=None if es is None else _tree_to(es, "cpu"),
                 spans=tracer.spans if tracer is not None and rank == 0
                 else None)
 
@@ -685,8 +739,7 @@ def _hybrid_rank(rank, world, group, device, graph, prog, vdata, knobs,
 def run_dist_hybrid(graph: PartitionedGraph, prog: VertexProgram, world: int,
                     *, backend: str, device: str, vdata: Any = None,
                     max_iters: int = 100_000, max_local_steps: int = 100_000,
-                    wire_dtype=None, use_ell: bool = True,
-                    collect_metrics: bool = True, trace: bool = False,
+                    wire_dtype=None, use_ell: bool = True, trace: bool = False,
                     deadline_s: float = 3600.0,
                     threads: int | None = None) -> DistRunResult:
     """Run ``prog`` to quiescence on ``world`` ranks, each on its block of
@@ -707,8 +760,7 @@ def run_dist_hybrid(graph: PartitionedGraph, prog: VertexProgram, world: int,
         raise ValueError("run_dist_hybrid takes the host graph; each rank "
                          "copies its own block to the device")
     knobs = dict(max_iters=max_iters, max_local_steps=max_local_steps,
-                 wire_dtype=wire_dtype, use_ell=use_ell,
-                 collect_metrics=collect_metrics)
+                 wire_dtype=wire_dtype, use_ell=use_ell)
     t0 = time.perf_counter()
     for leaf in _tree_leaves(graph):      # what pickling would do, timed
         leaf.share_memory_()

@@ -36,6 +36,7 @@ __all__ = ["Counters", "EngineState", "init_state", "exchange",
            "WIRE_DTYPES", "deliver",
            "apply_phase", "merge_inbox", "quiescent", "gather_per_partition",
            "ell_channels", "ell_f32_exact", "ell_slices", "slice_flat",
+           "block_flat",
            "ell_combine_bins", "ell_send_accounting", "ell_group_accounting",
            "DensePlan", "dense_plan"]
 
@@ -234,36 +235,38 @@ def ell_channels(graph: PartitionedGraph, prog: VertexProgram,
 def slice_flat(s: EllSlice, graph: PartitionedGraph, p: int):
     """Flattened (rows, idx, msk) views of one ELL slice over a block of
     ``p`` partitions.  When the block is the whole graph these are the
-    build-time flat views.  On a rank's block (``p < n_partitions``) the
-    block-ragged tiles are re-offset with block-local strides, as the
-    reference does inside ``shard_map``: each tile row's partition comes
-    from its block-relative row id (``row // Vp``, the sentinel clipped to
-    the block's last partition, where the mask drops it), sources move
-    by ``partition * stride`` and padded rows get the sentinel ``p * Vp``.
-    The re-offset changes the indices a kernel reads, never its fold
-    order; it is computed once per slice and kept on the graph."""
-    kb = s.kb
-    if p == graph.n_partitions:
-        return s.flat_rows, s.flat_idx, s.msk.reshape(-1, kb)
-    cache = graph.__dict__.setdefault("_block_flat", {})
-    if id(s) not in cache:
-        cache[id(s)] = _block_flat(s, graph, p)
-    return cache[id(s)]
+    build-time flat views.  On a rank's block (``p < n_partitions``) they
+    are the block's own, re-offset once when
+    :func:`repro_torch.core.distributed.block_view` cut the block (see
+    :func:`block_flat`); any other graph of ``p < n_partitions`` is
+    refused, since its flat views would hold global offsets."""
+    if p != graph.n_partitions and not graph.__dict__.get("_block_local"):
+        raise ValueError(
+            f"a block of {p} of {graph.n_partitions} partitions needs its "
+            f"own flat ELL views: cut it with "
+            f"repro_torch.core.distributed.block_view")
+    return s.flat_rows, s.flat_idx, s.msk.reshape(-1, s.kb)
 
 
-def _block_flat(s: EllSlice, graph: PartitionedGraph, p: int):
+def block_flat(s: EllSlice, vp: int, p: int):
+    """The (rows, idx) flat views of one block-sliced ELL slice over its
+    block of ``p`` partitions, after the reference's ``slice_flat`` inside
+    ``shard_map``: each tile row's partition comes from its block-relative
+    row id (``row // Vp``, the sentinel clipped to the block's last
+    partition, where the mask drops it), sources move by ``partition *
+    stride`` and padded rows get the sentinel ``p * Vp``.  The re-offset
+    changes the indices a kernel reads, never its fold order."""
     kb = s.kb
     b = s.rows.shape[0]                   # block rows on this rank
     ppb = p // b
-    bvp = ppb * graph.vp
+    bvp = ppb * vp
     blk = torch.arange(b, dtype=torch.int32, device=s.rows.device)[:, None]
-    prel = torch.clamp(torch.div(s.rows, graph.vp, rounding_mode="floor"),
+    prel = torch.clamp(torch.div(s.rows, vp, rounding_mode="floor"),
                        0, ppb - 1)
     pabs = blk * ppb + prel
     idx = (s.idx + (pabs * s.stride)[..., None]).reshape(-1, kb)
-    rows = torch.where(s.rows < bvp, s.rows + blk * bvp,
-                       p * graph.vp).reshape(-1)
-    return rows, idx, s.msk.reshape(-1, kb)
+    rows = torch.where(s.rows < bvp, s.rows + blk * bvp, p * vp).reshape(-1)
+    return rows, idx
 
 
 def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -135,10 +135,10 @@ class CheckpointHook(ExecHook):
 
     ``placement`` (a :class:`repro_torch.core.distributed.BlockPlacement`,
     where the reference's hook has ``shardings``) runs the hook on one
-    rank's block: every rank gathers the global state at a save and only
-    the writer rank writes it — the bytes a single-process run would
-    write — and every rank restores the global checkpoint and takes its
-    own block out of it.
+    rank's block: at a save every rank joins one gather of the global
+    state onto the writer rank, which alone holds and writes it — the
+    bytes a single-process run would write — and every rank restores the
+    global checkpoint and takes its own block out of it.
     """
 
     def __init__(self, *, key: dict, ckpt_dir: str | None = None,
@@ -203,8 +203,9 @@ class CheckpointHook(ExecHook):
     def after_step(self, ctx: ExecContext) -> None:
         if self.base is None or ctx.iteration % self.every:
             return
-        es = ctx.es if self.placement is None else \
-            self.placement.gather(ctx.es)          # every rank joins
+        es = ctx.es
+        if self.placement is not None:    # every rank joins; the writer
+            es = self.placement.gather(es)          # alone gets the state
         if self.checkpointer is not None:
             meta = {**self.key, "iteration": ctx.iteration}
             if self.meta_fn is not None:

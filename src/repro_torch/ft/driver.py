@@ -43,8 +43,8 @@ spans for every iteration, hook call and recovery, and a metrics registry
 filled at exit.  The straggler flags always come from the counters (the
 reference reads them off the registry when one is passed: the same
 numbers).  ``step_fn`` takes the distributed step
-(:mod:`repro_torch.core.distributed`) with ``es_placement`` in place of
-the reference's ``es_shardings``.
+(:mod:`repro_torch.core.distributed`), which carries its placement in
+place of the reference's ``es_shardings``.
 """
 
 from __future__ import annotations
@@ -239,6 +239,20 @@ class _FaultHook(ExecHook):
         return False                  # rolled back: skip this tick's step
 
 
+def _dist_policy(step_fn):
+    """The distributed step's policy and placement, or TypeError: a plain
+    step on a block would start from a block-local init without the
+    counter reduce and halt on this rank's quiescence alone."""
+    from repro_torch.core.distributed import DistHybridStep
+
+    if not isinstance(step_fn, DistHybridStep) or step_fn.placement is None:
+        raise TypeError(
+            "step_fn takes the distributed step of make_dist_hybrid_step("
+            "..., placement=BlockPlacement(...)): on a rank's block the "
+            "init, the halt rule and the checkpoints need the other ranks")
+    return step_fn.policy(), step_fn.placement
+
+
 def run_hybrid_ft(
     graph,
     prog: VertexProgram,
@@ -250,7 +264,6 @@ def run_hybrid_ft(
     keep: int = 3,
     resume: bool = True,
     step_fn=None,
-    es_placement=None,
     max_iters: int = 100_000,
     max_local_steps: int = 100_000,
     use_ell: bool = True,
@@ -269,20 +282,21 @@ def run_hybrid_ft(
 
     Each step is one global iteration of the hybrid policy
     (:func:`~repro_torch.exec.iteration.hybrid_iteration`), as in
-    :func:`~repro_torch.core.engine_hybrid.run_hybrid`, or ``step_fn(graph,
-    es) -> es``.  A ``step_fn`` with ``init(graph, vdata)`` and
-    ``quiescent(prog, es)`` methods supplies the starting state and the
-    halt rule as well: the distributed step
-    (:func:`~repro_torch.core.distributed.make_dist_hybrid_step`) does,
-    since on a rank's block (``graph`` from ``block_view``) both need the
-    other ranks.  ``es_placement`` (a
-    :class:`~repro_torch.core.distributed.BlockPlacement`) replaces the
-    reference's ``es_shardings``: JAX places a global array on the mesh,
-    while here each rank holds only its block, so the placement says how
-    to gather the global state for a save (rank 0 writes it, keyed to the
-    global graph: the bytes a single-process run writes) and how to take
-    the rank's block out of a restored one (every rank restores).  Every
-    rank of the group calls ``run_hybrid_ft`` with the same arguments.
+    :func:`~repro_torch.core.engine_hybrid.run_hybrid`, or of ``step_fn``:
+    the distributed step of
+    :func:`~repro_torch.core.distributed.make_dist_hybrid_step`, made with
+    a ``placement``, on a rank's block (``graph`` from ``block_view``).
+    It supplies the run's starting state, step and halt rule (its
+    ``policy()``), since on a block all three need the other ranks, and
+    its engine knobs replace this function's.  Its
+    :class:`~repro_torch.core.distributed.BlockPlacement` replaces the
+    reference's ``step_fn`` / ``es_shardings`` pair: JAX places a global
+    array on the mesh, while here each rank holds only its block, so the
+    placement says how to gather the global state for a save (onto rank
+    0, which writes it, keyed to the global graph: the bytes a
+    single-process run writes) and how to take the rank's block out of a
+    restored one (every rank restores).  Every rank of the group calls
+    ``run_hybrid_ft`` with the same arguments.
 
     Checkpoints land under ``ckpt_dir`` every ``checkpoint_every`` global
     iterations: the state is copied to the host in the loop's thread and
@@ -318,8 +332,9 @@ def run_hybrid_ft(
 
     Returns:
         An :class:`FTRunResult`: the final ``EngineState`` (``es``; this
-        rank's block under ``es_placement``) and iteration count, every
-        :class:`RecoveryEvent` and straggler ``ShardFlag`` observed,
+        rank's block under ``step_fn``) and iteration count, every
+        :class:`RecoveryEvent` and straggler ``ShardFlag`` observed (over
+        every partition, on every rank),
         ``resumed_from`` (checkpoint dir this run restored from, or
         ``None`` for a cold start), the monitor's final
         reassignment ``epoch``, and the populated ``registry`` (when one
@@ -331,24 +346,22 @@ def run_hybrid_ft(
             restore mismatched state.
         RuntimeError: CUDA asked for (the default) and absent.
         ValueError: the graph lives on another device.
+        TypeError: ``step_fn`` is not a distributed step with a placement.
     """
     check_graph_device(graph, device)
-    policy = hybrid_policy(use_ell=use_ell, collect_metrics=collect_metrics,
-                           max_local_steps=max_local_steps)
-    if step_fn is not None:
-        policy = dataclasses.replace(
-            policy, step=lambda g, p, e, v: step_fn(g, e),
-            halt=getattr(step_fn, "quiescent", None))
-    if hasattr(step_fn, "init"):
-        template = step_fn.init(graph, vdata)
+    placement = None
+    if step_fn is None:
+        policy = hybrid_policy(use_ell=use_ell,
+                               collect_metrics=collect_metrics,
+                               max_local_steps=max_local_steps)
     else:
-        template = init_hybrid(graph, prog, vdata, use_ell=use_ell,
-                               collect_metrics=collect_metrics)
-    key_graph = graph if es_placement is None else es_placement.graph
+        policy, placement = _dist_policy(step_fn)
+    template = policy.init(graph, prog, vdata)
+    key_graph = graph if placement is None else placement.graph
     ckpt = CheckpointHook(key=checkpoint_key(key_graph, prog, vdata),
                           ckpt_dir=ckpt_dir, checkpointer=checkpointer,
                           every=checkpoint_every, keep=keep, resume=resume,
-                          template=template, placement=es_placement)
+                          template=template, placement=placement)
 
     # --- simulated cluster: contiguous partition blocks per worker --------
     P = graph.n_partitions
@@ -372,9 +385,9 @@ def run_hybrid_ft(
                      hooks=hooks, es=template)
 
     counters = ctx.es.counters
-    if es_placement is not None:      # the global per-partition counts
+    if placement is not None:         # the global per-partition counts
         counters = dataclasses.replace(counters, pseudo_supersteps=(
-            es_placement.gather(counters.pseudo_supersteps)))
+            placement.all_gather(counters.pseudo_supersteps)))
     if registry is not None:
         from repro_torch.obs.metrics import (record_checkpointer,
                                              record_engine_counters)

@@ -519,8 +519,9 @@ def traced_dist_step(step: Callable, tracer: Tracer, group=None,
         after = _counters_host(es.counters)
         pseudo = int((after["pseudo_supersteps"]
                       - before["pseudo_supersteps"]).sum())
-        mine = torch.tensor([[xb, halo, pseudo]], dtype=torch.int64)
-        per = all_gather_rows(mine, group).numpy()    # (world, 3)
+        mine = torch.tensor([[xb, halo, pseudo]], dtype=torch.int64,
+                            device=es.send.device)
+        per = all_gather_rows(mine, group).cpu().numpy()    # (world, 3)
         if dist.get_rank(group) == 0:
             tracer.add(
                 "dist_step", t0, dur, cat="superstep", tid=tid,

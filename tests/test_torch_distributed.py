@@ -42,8 +42,8 @@ from repro_torch import (SSSP, IncrementalPageRank, MultiSourceMonotone,
                          run_hybrid)
 from repro_torch.convert import to_numpy
 from repro_torch.core import distributed as D
-from repro_torch.core.runtime import (Counters, EngineState, exchange,
-                                      slice_flat)
+from repro_torch.core.runtime import (Counters, EngineState, block_flat,
+                                      exchange, slice_flat)
 from repro_torch.data.graphs import grid_graph, path_graph, rmat_graph
 from repro_torch.exec.iteration import init_hybrid
 from repro_torch.partition import bfs_partition, hash_partition
@@ -283,16 +283,34 @@ def _ft_job(rank, world, group, device, graph, prog, dirs):
 
     bg = D.block_view(graph, rank, world, device)
     place = D.BlockPlacement(rank, world, group, device, graph)
-    step = D.make_dist_hybrid_step(prog, group)
+    step = D.make_dist_hybrid_step(prog, group, placement=place)
     run = functools.partial(run_hybrid_ft, bg, prog, step_fn=step,
-                            es_placement=place, device=device)
+                            device=device)
     ref = run()
     r1 = run(ckpt_dir=dirs[0], max_iters=3)
     r2 = run(ckpt_dir=dirs[0])
     run(ckpt_dir=dirs[1], max_iters=3)
-    out = {k: (to_numpy(place.gather(r.es)), r.iterations, r.resumed_from)
-           for k, r in (("ref", ref), ("r1", r1), ("r2", r2))}
-    return out if rank == 0 else None
+    runs = (("ref", ref), ("r1", r1), ("r2", r2))
+    states = {k: place.gather(r.es) for k, r in runs}   # onto rank 0 alone
+    if rank:
+        return {"gathered_elsewhere": [k for k, v in states.items()
+                                       if v is not None],
+                "flags": [f.partition for f in ref.straggler_flags]}
+    return {k: (to_numpy(states[k]), r.iterations, r.resumed_from)
+            for k, r in runs} | {"flags": [f.partition
+                                           for f in ref.straggler_flags]}
+
+
+def _metrics_off_job(rank, world, group, device, graph, prog):
+    """The step with ``collect_metrics=False``, run to quiescence; the
+    state gathered onto rank 0."""
+    from repro_torch.exec.driver import run_engine
+
+    step = D.make_dist_hybrid_step(prog, group, collect_metrics=False)
+    ctx = run_engine(D.block_view(graph, rank, world, device), prog,
+                     step.policy(), None, max_iters=500)
+    es = D.gather_state(ctx.es, group)
+    return None if es is None else (to_numpy(es), ctx.iteration)
 
 
 def _jobs_rank(rank, world, group, device, jobs):
@@ -307,6 +325,7 @@ def _jobs_rank(rank, world, group, device, jobs):
         else:
             out.append({"exchange": _exchange_job, "init": _init_job,
                         "step_error": _step_error_job,
+                        "metrics_off": _metrics_off_job,
                         "ft": _ft_job}[kind](rank, world, group, device,
                                              *args))
     return out
@@ -328,7 +347,7 @@ def _sleep_rank(rank, world, group, device):
 
 def _knobs(use_ell, **kw):
     return dict(dict(max_iters=500, max_local_steps=10_000, wire_dtype=None,
-                     use_ell=use_ell, collect_metrics=True), **kw)
+                     use_ell=use_ell), **kw)
 
 
 def _run_jobs():
@@ -340,8 +359,8 @@ def _run_jobs():
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     """One spawn of 4 ranks: every case × delivery, the bfloat16-wire run,
-    the exchange, the block init, the step's refusal and the
-    kill-and-resume of SSSP and PageRank."""
+    the exchange, the block init, the step's refusal, a run without the
+    message counters and the kill-and-resume of SSSP and PageRank."""
     edges, n, part, arrays = _wire_inputs()
     wg = build_partitioned_graph(edges, n, part, edge_blocks=4,
                                  device="cpu")
@@ -357,6 +376,7 @@ def world4(tmp_path_factory):
         (("init",), ("init", (port_graph("pagerank"),
                               IncrementalPageRank(tolerance=1e-4)))),
         (("step_error",), ("step_error", (g2, SSSP(source=0)))),
+        (("metrics_off",), ("metrics_off", (grid, SSSP(source=0)))),
         (("ft", "sssp"), ("ft", (grid, SSSP(source=0), dirs["sssp"]))),
         (("ft", "pagerank"), ("ft", (port_graph("pagerank"),
                                      IncrementalPageRank(tolerance=1e-4),
@@ -434,6 +454,26 @@ def test_block_view_keeps_static_fields_global():
         D.block_view(g, 0, 3, "cpu")
 
 
+def test_block_view_flat_views_are_the_blocks_own():
+    """A block's flat ELL views are re-offset to the block (no copy of the
+    global ones rides along), ``slice_flat`` hands them out as they are,
+    and refuses a block that was not cut by ``block_view``."""
+    g = port_graph("hub_sssp")
+    p = g.n_partitions // 4
+    for rank in range(4):
+        b = D.block_view(g, rank, 4, "cpu")
+        for s in b.local_ell + b.remote_ell:
+            rows, idx = block_flat(s, g.vp, p)
+            got = slice_flat(s, b, p)
+            assert got[0] is s.flat_rows and got[1] is s.flat_idx
+            assert torch.equal(s.flat_rows, rows)
+            assert torch.equal(s.flat_idx, idx)
+            assert int(s.flat_rows.max()) <= p * g.vp     # block sentinel
+    raw = D._map_tree(D._cut(1, 4, torch.device("cpu")), g)
+    with pytest.raises(ValueError, match="block_view"):
+        slice_flat(raw.remote_ell[0], raw, p)
+
+
 def _ref_exchange(wd):
     a = jx()
     edges, n, part, arrays = _wire_inputs()
@@ -489,7 +529,7 @@ def test_exchange_through_gloo_gather_matches_reference(world4, wd):
 
 def test_all_gather_rows_round_trips_every_dtype():
     """One rank's group: the byte path rebuilds bool, uint16, bfloat16
-    and float8 leaves unchanged."""
+    and float8 leaves unchanged, all-gathered and gathered to rank 0."""
     store = dist.HashStore()
     dist.init_process_group("gloo", store=store, rank=0, world_size=1)
     try:
@@ -498,11 +538,12 @@ def test_all_gather_rows_round_trips_every_dtype():
                 "bf": torch.tensor([[1.5, -2.25]], dtype=torch.bfloat16),
                 "f8": torch.tensor([[0.5]]).to(torch.float8_e5m2)}
         D.reset_comm()
-        got = D.all_gather_rows(tree)
-        assert D.COMM["collectives"] == 1
-        for k, v in tree.items():
-            assert got[k].dtype == v.dtype and got[k].shape == v.shape
-            assert torch.equal(got[k].view(torch.uint8), v.view(torch.uint8))
+        for got in (D.all_gather_rows(tree), D.gather_state(tree)):
+            for k, v in tree.items():
+                assert got[k].dtype == v.dtype and got[k].shape == v.shape
+                assert torch.equal(got[k].view(torch.uint8),
+                                   v.view(torch.uint8))
+        assert D.COMM["collectives"] == 2
     finally:
         dist.destroy_process_group()
 
@@ -700,13 +741,18 @@ def _named(tree):
 
 @pytest.mark.parametrize("app", ["sssp", "pagerank"])
 def test_dist_ft_kill_resume(world4, app):
-    """``run_hybrid_ft(step_fn=, es_placement=)`` stopped after 3
-    iterations and resumed: bit-identical to the uninterrupted distributed
-    run, state and every counter; the rank-0 checkpoint of another stopped
-    run resumes in the host ``run_hybrid_ft`` to the same end."""
+    """``run_hybrid_ft(step_fn=)`` with a placed distributed step, stopped
+    after 3 iterations and resumed: bit-identical to the uninterrupted
+    distributed run, state and every counter; the state is gathered onto
+    rank 0 alone, and every rank flags the same stragglers; the rank-0
+    checkpoint of another stopped run resumes in the host
+    ``run_hybrid_ft`` to the same end."""
     from repro_torch.ft import run_hybrid_ft
 
     out = world4["by_rank"][0][("ft", app)]
+    for r in world4["by_rank"][1:]:
+        assert r[("ft", app)]["gathered_elsewhere"] == []
+        assert r[("ft", app)]["flags"] == out["flags"]
     (ref, ref_it, _), (_, it1, from1), (r2, it2, from2) = \
         out["ref"], out["r1"], out["r2"]
     assert it1 == 3 < ref_it and from1 is None
@@ -721,6 +767,32 @@ def test_dist_ft_kill_resume(world4, app):
                          device="cpu")
     assert host.resumed_from.endswith("step_00000003")
     assert_run_equal(host.es, host.iterations, ref, ref_it, f"{app} host")
+    assert [f.partition for f in host.straggler_flags] == out["flags"]
+
+
+def test_run_hybrid_ft_refuses_a_step_without_placement():
+    """A plain ``step_fn``, or the distributed step without a placement,
+    is refused before any collective."""
+    from repro_torch.ft import run_hybrid_ft
+
+    g = port_graph("grid_sssp")
+    prog = SSSP(source=0)
+    for step in (lambda graph, es: es, D.make_dist_hybrid_step(prog)):
+        with pytest.raises(TypeError, match="placement=BlockPlacement"):
+            run_hybrid_ft(g, prog, step_fn=step, device="cpu")
+
+
+def test_dist_step_without_metrics(world4):
+    """``collect_metrics=False`` on the distributed step: the host run's
+    state and iterations, the three message counters left at zero."""
+    want_es, want_iters = ref_run("grid_sssp", True)
+    got_es, got_iters = world4["by_rank"][0][("metrics_off",)]
+    assert got_iters == want_iters
+    for k in want_es["state"]:
+        assert_bits(got_es["state"][k], want_es["state"][k], k)
+    for f in ("net_messages", "net_local_messages", "mem_messages"):
+        assert int(got_es["counters"][f]) == 0, f
+    assert all(r[("metrics_off",)] is None for r in world4["by_rank"][1:])
 
 
 # ---------------------------------------------------------------------------
@@ -787,3 +859,37 @@ def test_dist_on_the_card_matches_host_run(case):
     kernel = "min_step" if case == "hub_sssp" else "pr_step"
     assert all(r["launches"][kernel] > 0 and r["launches"]["ell_spmv"] > 0
                for r in got.ranks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hub_sssp", "pagerank"])
+def test_dist_nccl_card_per_rank_matches_host_run(case, tmp_path):
+    """NCCL, rank r on ``cuda:r``, one rank per card of the host: the
+    traced run equals the single-process run on the card (nothing staged
+    through host memory, one ``dist_step`` span per iteration), and the
+    kill-and-resume, whose checkpoints gather onto rank 0, equals the
+    uninterrupted run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    world = torch.cuda.device_count()
+    g = port_graph(case)
+    if g.n_blocks % world:
+        pytest.skip(f"{g.n_blocks} edge blocks on {world} cards")
+    prog = case_inputs(case)[5]
+    got = D.run_dist_hybrid(g, prog, world, backend="nccl", device="cuda",
+                            trace=True, deadline_s=DEADLINE)
+    want = run_hybrid(D.block_view(g, 0, 1, "cuda"), prog)
+    assert_run_equal(got.es, got.iterations, *want, case)
+    assert all(r["comm"]["staged_bytes"] == 0 for r in got.ranks)
+    assert [s.name for s in got.spans] == ["dist_step"] * got.iterations
+    kernel = "min_step" if case == "hub_sssp" else "pr_step"
+    assert all(r["launches"][kernel] > 0 and r["launches"]["ell_spmv"] > 0
+               for r in got.ranks)
+    dirs = [str(tmp_path / "a"), str(tmp_path / "b")]
+    out = D.spawn_ranks(_jobs_rank, world, "nccl", "cuda",
+                        args=([("ft", (g, prog, dirs))],),
+                        deadline_s=DEADLINE)[0][0]
+    (ref, ref_it, _), (r2, it2, from2) = out["ref"], out["r2"]
+    assert from2.endswith("step_00000003")
+    assert_run_equal(r2, it2, ref, ref_it, f"{case} nccl resumed")
+    assert_run_equal(ref, ref_it, *want, f"{case} nccl ft")
