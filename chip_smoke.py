@@ -150,6 +150,37 @@ Phases, one line each (any failure exits non-zero and prints no result):
               one injected kill (one ``recovery`` span, the registry's
               flags read back off the registry equal to the run's);
               ``python -m repro_torch.obs.report`` in a subprocess, exit 0.
+14. lm       — the LM substrate (``repro_torch.models``, ``train``,
+              ``optim``, ``core.hybrid_sync``), float32 with TF32 off, on
+              ``demo-100m`` (``examples/train_lm.py``'s 14 × 640 LM, 32,768
+              tokens, tied; ``count_params`` printed).  Serving: 4 prompts
+              of 256 tokens left-padded to 256 / 201 / 130 / 64 through
+              ``start``, ``prefill`` into a cache of 288, 32 greedy
+              ``decode_step``s, every step's logits against ``forward``
+              over that request's own unpadded prefix (atol 1e-4); prefill
+              ms, ms a decode step, tokens/s, peak memory.  Training: 100
+              steps of ``make_train_step`` at the example's settings (batch
+              8 × 256 from ``SyntheticTokens``, peak lr 3e-4, warmup 50)
+              under ``torch.use_deterministic_algorithms(True)``,
+              checkpointed by ``AsyncCheckpointer`` at step 50; a fresh
+              model and optimizer restored from it run steps 50–99 again,
+              bit for bit the uninterrupted run (losses, weights, AdamW
+              state); the loss finite throughout and its last 10 steps'
+              mean below ln(vocab); ms a step, tokens/s, peak memory,
+              checkpoint bytes and seconds; one more step under
+              ``torch.profiler`` (device ms and launches a step).  Then every family of
+              ``configs.lm_smoke.SMOKE_FAMILIES`` (dense GQA, window +
+              softcap, MLA, MoE with a dense head and shared experts,
+              Mamba, Mamba/attention, encoder-decoder, VLM) on the card
+              against the host: forward, prefill + 4 decode steps
+              (``LM_FAMILY_ATOL``), one train step held as its gradients
+              leaf by leaf (``LM_GRAD_RTOL``), AdamW on the host's
+              gradients against the host's update (``LM_UPDATE_RTOL``)
+              and the card's step against AdamW on its own gradients, bit
+              for bit; then ``microbatches=4`` against 1, and two pods of
+              inner steps, then two rounds of
+              ``global_sync(compress=True)`` on the same pods, card against
+              host (``LM_SYNC_RTOL``).
 
 Every phase prints its wall time; the ``[done]`` line gives the seconds
 of each phase (``phase_s``), set-up and checks included.
@@ -166,7 +197,9 @@ card's name and power limit, and the last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -176,6 +209,12 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# cuBLAS is deterministic under torch.use_deterministic_algorithms (the
+# lm phase's resumed training run) only with a fixed workspace, set before
+# its first call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+from repro_torch.configs.lm_smoke import DEMO_100M  # noqa: E402
 
 GRID_SIDE = 2048          # SSSP grid: GRID_SIDE^2 vertices
 GRID_TILES = 8            # geographic labels: GRID_TILES^2 partitions
@@ -1160,32 +1199,39 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
     return report, timed
 
 
-def phase_profile(app, graph, prog, iters):
-    """Where the time goes: the first ``iters`` global iterations of the
-    main path under ``torch.profiler`` — device busy share of the wall time
-    and the kernels (ours and PyTorch's glue) by device time."""
-    import torch
+def _profiled(fn, top: int):
+    """``fn()`` under ``torch.profiler`` -> (wall s, device busy s, kernel
+    launches, the ``top`` kernels by device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import run_hybrid
-
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        run_hybrid(graph, prog, max_iters=iters)
+        fn()
         sync()
         wall = time.perf_counter() - t
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    top = sorted(rows, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:12]
     table = [dict(kernel=e.key[:90], calls=e.count,
-                  device_ms=e.self_device_time_total / 1e3) for e in top]
+                  device_ms=e.self_device_time_total / 1e3)
+             for e in sorted(rows, key=lambda e: e.self_device_time_total,
+                             reverse=True)[:top]]
+    return wall, busy, sum(e.count for e in rows), table
+
+
+def phase_profile(app, graph, prog, iters):
+    """Where the time goes: the first ``iters`` global iterations of the
+    main path under ``torch.profiler`` — device busy share of the wall time
+    and the kernels (ours and PyTorch's glue) by device time."""
+    from repro_torch import run_hybrid
+
+    wall, busy, launches, table = _profiled(
+        lambda: run_hybrid(graph, prog, max_iters=iters), 12)
     say("profile", app=app, iterations=iters, wall_s=f"{wall:.3f}",
         device_busy_s=f"{busy:.3f}",
-        idle_share=f"{1 - busy / wall:.3f}" if rows else "not captured")
+        idle_share=f"{1 - busy / wall:.3f}" if launches else "not captured")
     for r in table:
         say("profile", app=app, calls=r["calls"],
             device_ms=f"{r['device_ms']:.2f}", kernel=repr(r["kernel"]))
@@ -2436,6 +2482,477 @@ def phase_obs(sssp_graph, sssp_want, pr_graph, pr_want):
     return out
 
 
+# --------------------------------------------------------------------------
+# lm: the LM substrate — serving, then training, then every family
+# --------------------------------------------------------------------------
+
+LM_DEVICE = "cuda"
+LM_CFG = DEMO_100M
+LM_SERVE = dict(batch=4, prompt=256, max_len=288, decode=32)
+LM_PROMPT_LENS = (256, 201, 130, 64)   # left-padded through ``start``
+LM_TRAIN = dict(steps=100, batch=8, seq=256, peak_lr=3e-4, warmup=50,
+                resume_at=50)
+LM_TIMED_FROM = 10        # ms per step over the steps after the first 10
+# the loss must fall: the mean of the last 10 steps below ln(vocab), the
+# loss of a uniform prediction, which is all that a model learning nothing
+# of the sequences reaches (the random walk's tokens are uniform).  50 of
+# the 100 steps are warm-up, so the loss falls by a few per cent here, not
+# by the 10 % a longer run reaches
+# decode logits against a full forward over the same prefix: float32 with
+# TF32 off, the two paths sum over other shapes (one token against the
+# cache, 288 tokens at once), so they agree to float32 rounding of logits
+# of magnitude ~1
+LM_DECODE_ATOL = 1e-4
+# the families on the card against the same code on the host, float32, TF32
+# off: logits and losses to float32 rounding (LM_FAMILY_ATOL).  The train
+# step in three parts, each held against a scale of its own: the gradients,
+# leaf by leaf against the leaf's largest gradient (LM_GRAD_RTOL); AdamW on
+# the card fed the host's gradients against the host's update, leaf by leaf
+# against the leaf's largest move (LM_UPDATE_RTOL); and the card's
+# ``make_train_step`` against its own ``adamw_update`` on its own gradients,
+# bit for bit under deterministic algorithms.  Weights after a step from
+# each side's own gradients cannot be held tighter than the step: AdamW's
+# first step moves a weight by ~lr whatever its gradient's size, so one
+# whose gradient rounds to the other sign moves apart by up to 2·lr
+LM_FAMILY_ATOL = 1e-4
+LM_FAMILY_LR = 1e-4
+LM_GRAD_RTOL = 1e-4
+LM_UPDATE_RTOL = 1e-2
+# the global phase card against host on the same pods: the anchor, the
+# momentum and the int8 residuals leaf by leaf against the leaf's largest
+# first-round residual (about half its int8 step), which is what dropping
+# the compression or the residual's carry would move them by
+LM_SYNC_RTOL = 1e-2
+
+
+def _lm_batch(cfg, b, s, seed, device):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": rng.randint(0, cfg.vocab, (b, s)),
+             "labels": rng.randint(0, cfg.vocab, (b, s))}
+    if cfg.family == "audio":
+        batch["audio_embed"] = rng.randn(b, cfg.enc_frames,
+                                         cfg.d_model).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["vis_embed"] = rng.randn(b, cfg.vis_tokens,
+                                       cfg.vis_dim).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _max_err(a, b) -> float:
+    return float((a.detach().float().cpu() - b.detach().float().cpu())
+                 .abs().max())
+
+
+def lm_serve(cfg, model, device):
+    """Four left-padded prompts prefilled into the cache, then greedy
+    decode steps; each step's logits against ``forward`` over the same
+    prefix (one forward per request, its own tokens unpadded)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import get_model
+    api = get_model(cfg)
+    b, s, max_len, n_dec = (LM_SERVE[k] for k in ("batch", "prompt",
+                                                   "max_len", "decode"))
+    lens = torch.tensor(LM_PROMPT_LENS, device=device)
+    start = s - lens
+    rng = np.random.RandomState(1)
+    tokens = torch.from_numpy(rng.randint(1, cfg.vocab, (b, s))).to(device)
+    tokens = torch.where(torch.arange(s, device=device)[None] >= start[:, None],
+                         tokens, 0)
+
+    def serve():
+        cache = api.init_cache(cfg, b, max_len, torch.float32, device)
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(model, {"tokens": tokens, "start": start},
+                                    cache, cfg)
+        sync()
+        t1 = time.perf_counter()
+        out, steps = [logits[:, -1]], []
+        for j in range(n_dec):
+            tok = out[-1].argmax(-1)[:, None]
+            steps.append(tok)
+            logits, cache = api.decode_step(model, tok, cache, s + j, cfg,
+                                            kv_start=start)
+            out.append(logits[:, -1])
+        sync()
+        return t1 - t0, time.perf_counter() - t1, out, steps
+
+    with torch.no_grad():
+        serve()                                   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        prefill_s, decode_s, out, steps = serve()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        gen = torch.cat(steps, dim=1)             # (b, n_dec)
+        err = 0.0
+        for i in range(b):
+            seq = torch.cat([tokens[i, int(start[i]):], gen[i]])[None]
+            full = api.forward(model, {"tokens": seq}, cfg)[0]
+            n = int(lens[i])
+            want = full[n - 1:n - 1 + len(out)]   # prefill, then each step
+            got = torch.stack([o[i] for o in out])
+            err = max(err, _max_err(got, want))
+    if not err <= LM_DECODE_ATOL:
+        raise AssertionError(f"decode logits differ from forward by {err}")
+    row = dict(requests=b, prompt_lens=list(LM_PROMPT_LENS),
+               max_len=max_len, decode_steps=n_dec,
+               prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=decode_s * 1e3 / n_dec,
+               decode_tokens_per_s=b * n_dec / decode_s,
+               prefill_tokens_per_s=float(lens.sum()) / prefill_s,
+               peak_GiB=peak, decode_vs_forward_max_abs_err=err,
+               tolerance=LM_DECODE_ATOL)
+    say("lm", part="serve", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                for k, v in row.items()})
+    return row
+
+
+def lm_train(cfg, device, wd):
+    """``make_train_step`` at the example's settings, checkpointed at
+    ``resume_at``; a fresh model and optimizer restored from that
+    checkpoint run the rest again and must match bit for bit."""
+    import torch
+    from repro_torch.checkpoint import AsyncCheckpointer, load_checkpoint
+    from repro_torch.checkpoint.ckpt import latest_checkpoint
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.trainer import make_train_step
+    api = get_model(cfg)
+    tr = LM_TRAIN
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=tr["seq"],
+                                      global_batch=tr["batch"]))
+    step_fn = make_train_step(cfg, api, peak_lr=tr["peak_lr"],
+                              warmup=tr["warmup"], total_steps=tr["steps"])
+
+    def batch(step):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in data.batch(step).items()}
+
+    def run(model, opt, first, ckpt=None):
+        losses, marks = [], {}
+        for step in range(first, tr["steps"]):
+            if step == LM_TIMED_FROM:
+                sync()
+                marks["timed"] = time.perf_counter()
+            if ckpt is not None and step == tr["resume_at"]:
+                ckpt.save(step, {"p": model.state_dict(), "o": opt})
+            model, opt, m = step_fn(model, opt, batch(step), step)
+            losses.append(m["loss"])
+        sync()
+        marks["end"] = time.perf_counter()
+        return model, opt, torch.stack(losses).cpu(), marks
+
+    torch.cuda.reset_peak_memory_stats()
+    model = api.init(torch.Generator().manual_seed(0), cfg, torch.float32,
+                     device)
+    ckpt = AsyncCheckpointer(wd, keep=1)
+    model, opt, losses, marks = run(model, adamw_init(model), 0, ckpt)
+    ckpt.wait()
+    ckpt.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_timed = tr["steps"] - LM_TIMED_FROM
+    ms = (marks["end"] - marks["timed"] - ckpt.save_seconds) * 1e3 / n_timed
+    final = {k: v.clone() for k, v in model.state_dict().items()}
+    final_opt = opt
+    del model, opt
+
+    fresh = api.init(torch.Generator().manual_seed(1), cfg, torch.float32,
+                     device)
+    path = latest_checkpoint(wd)
+    t0 = time.perf_counter()
+    state, at = load_checkpoint(path, {"p": fresh.state_dict(),
+                                       "o": adamw_init(fresh)})
+    restore_s = time.perf_counter() - t0
+    if at != tr["resume_at"]:
+        raise AssertionError(f"checkpoint at step {at}")
+    fresh.load_state_dict(state["p"])
+    fresh, opt, resumed, _ = run(fresh, state["o"], at)
+    same = (torch.equal(resumed, losses[at:])
+            and all(torch.equal(v, final[k])
+                    for k, v in fresh.state_dict().items())
+            and all(torch.equal(opt.mu[k], final_opt.mu[k])
+                    and torch.equal(opt.nu[k], final_opt.nu[k])
+                    for k in opt.mu)
+            and torch.equal(opt.step, final_opt.step))
+    first, last10 = float(losses[0]), float(losses[-10:].mean())
+    finite = bool(torch.isfinite(losses).all() and torch.isfinite(resumed)
+                  .all())
+    bar = math.log(cfg.vocab)
+    # one more step under the profiler: where a step's time goes
+    wall, busy, launches, table = _profiled(
+        lambda: step_fn(fresh, opt, batch(tr["steps"] - 1), tr["steps"] - 1),
+        5)
+    prof = dict(wall_ms=wall * 1e3, device_ms=busy * 1e3, launches=launches,
+                idle_share=(1 - busy / wall) if launches else None,
+                top_kernels=table)
+    row = dict(steps=tr["steps"], batch=tr["batch"], seq=tr["seq"],
+               loss_first=first, loss_last10_mean=last10,
+               loss_bar_ln_vocab=bar,
+               loss_every_10=[round(float(x), 4) for x in losses[::10]],
+               ms_per_step=ms,
+               tokens_per_s=tr["batch"] * tr["seq"] / ms * 1e3,
+               peak_GiB=peak, ckpt_bytes=ckpt.bytes_written,
+               ckpt_snapshot_s=ckpt.save_seconds,
+               ckpt_write_s=ckpt.write_seconds, restore_s=restore_s,
+               resumed_at=at, resumed_bit_identical=same, profile=prof)
+    say("lm", part="train", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                for k, v in row.items() if k != "profile"})
+    say("lm", part="train_profile", **{
+        k: (f"{v:.4g}" if isinstance(v, float) else v)
+        for k, v in prof.items() if k != "top_kernels"})
+    for r in prof["top_kernels"]:
+        say("lm", part="train_profile", calls=r["calls"],
+            device_ms=f"{r['device_ms']:.2f}", kernel=repr(r["kernel"]))
+    if not finite or not last10 < bar:
+        raise AssertionError(f"loss did not fall below ln(vocab) = {bar}: "
+                             f"{first} -> {last10}")
+    if not same:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    return row
+
+
+def _rel(diff: float, scale: float) -> float:
+    """``diff`` against ``scale``; nothing against nothing is 0."""
+    return diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+
+
+def _leafwise_rel(got, want, scale) -> float:
+    """The largest of each leaf's max |got - want| over its own scale."""
+    return max(_rel(_max_err(got[k], want[k]), scale[k]) for k in want)
+
+
+def _absmax(tree) -> dict:
+    return {k: float(v.detach().float().abs().max()) for k, v in tree.items()}
+
+
+def lm_family(name, cfg, device):
+    """One family on the card against the same code on the host: forward,
+    prefill (left-padded where the family takes ``start``) and 4 decode
+    steps; then one train step, held as its gradients, AdamW on the host's
+    gradients and ``make_train_step``'s wiring (see ``LM_GRAD_RTOL``)."""
+    import copy
+    import torch
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import adamw_init, adamw_update, named
+    from repro_torch.train.trainer import make_loss_fn, make_train_step
+    api = get_model(cfg)
+    loss_fn = make_loss_fn(cfg, api)
+    step_fn = make_train_step(cfg, api, peak_lr=LM_FAMILY_LR, warmup=1)
+    host = api.init(torch.Generator().manual_seed(2), cfg, torch.float32,
+                    "cpu")
+    card = copy.deepcopy(host).to(device)
+    errs = {}
+    b, s, max_len = 2, 32, 48
+    padded = cfg.family not in ("audio", "vlm")
+    res = {}
+    for side, dev, model in (("host", "cpu", host), ("card", device, card)):
+        batch = _lm_batch(cfg, b, s, 3, dev)
+        if padded:
+            batch["start"] = torch.tensor([0, 7], device=dev)
+        with torch.no_grad():
+            fwd = api.forward(model, batch, cfg)
+            cache = api.init_cache(cfg, b, max_len, torch.float32, dev)
+            logits, cache = api.prefill(model, batch, cache, cfg)
+            outs = [logits]
+            cur = s + (cfg.vis_tokens if cfg.family == "vlm" else 0)
+            tok = logits.argmax(-1)
+            if side == "card":            # the host's tokens drive both
+                tok = res["host"]["toks"][0].to(dev)
+            toks = [tok.cpu()]
+            for j in range(4):
+                kw = dict(kv_start=batch["start"]) if padded else {}
+                logits, cache = api.decode_step(model, tok, cache, cur + j,
+                                                cfg, **kw)
+                outs.append(logits)
+                tok = (logits.argmax(-1) if side == "host"
+                       else res["host"]["toks"][j + 1].to(dev))
+                toks.append(tok.cpu())
+        params = named(model)
+        p0 = {k: p.detach().clone() for k, p in params.items()}
+        grads = dict(zip(params, torch.autograd.grad(
+            loss_fn(model, batch), list(params.values()))))
+        model, _, m = step_fn(model, adamw_init(model), batch, 0)
+        res[side] = dict(fwd=fwd, outs=outs, toks=toks, m=m, p0=p0,
+                         grads=grads, stepped=model.state_dict())
+    h, c = res["host"], res["card"]
+    lr = float(h["m"]["lr"])
+    # AdamW on each side from the same weights on the host's gradients
+    want, _ = adamw_update(h["p0"], h["grads"], adamw_init(h["p0"]), lr)
+    got, _ = adamw_update(c["p0"], {k: g.to(device)
+                                    for k, g in h["grads"].items()},
+                          adamw_init(c["p0"]), lr)
+    moved = {k: _max_err(want[k], h["p0"][k]) for k in want}
+    # the card's step against its own AdamW on its own gradients
+    own, _ = adamw_update(c["p0"], c["grads"], adamw_init(c["p0"]), lr)
+    errs["forward"] = _max_err(c["fwd"], h["fwd"])
+    errs["decode"] = max(_max_err(x, y) for x, y in zip(c["outs"], h["outs"]))
+    errs["loss_rel"] = abs(float(c["m"]["loss"]) / float(h["m"]["loss"]) - 1)
+    errs["grad_norm_rel"] = abs(float(c["m"]["grad_norm"])
+                                / float(h["m"]["grad_norm"]) - 1)
+    errs["grads_rel"] = _leafwise_rel(c["grads"], h["grads"],
+                                      _absmax(h["grads"]))
+    errs["update_rel"] = _leafwise_rel(got, want, moved)
+    step_wired = all(torch.equal(c["stepped"][k], own[k]) for k in own)
+    say("lm", part="family", family=name, params=sum(
+        p.numel() for p in host.parameters()),
+        **{k: f"{v:.3g}" for k, v in errs.items()}, step_wired=step_wired)
+    if not (errs["forward"] <= LM_FAMILY_ATOL
+            and errs["decode"] <= LM_FAMILY_ATOL
+            and errs["loss_rel"] <= LM_FAMILY_ATOL
+            and errs["grad_norm_rel"] <= LM_FAMILY_ATOL
+            and errs["grads_rel"] <= LM_GRAD_RTOL
+            and errs["update_rel"] <= LM_UPDATE_RTOL and step_wired):
+        raise AssertionError(f"{name}: card and host differ: {errs} "
+                             f"step_wired={step_wired}")
+    return dict(errs, step_wired=step_wired)
+
+
+def lm_microbatches(cfg, device):
+    """``microbatches=4`` against 1 on the card: the same loss and, after
+    one step, the same weights within the reference test's bound."""
+    import torch
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.trainer import make_train_step
+    api = get_model(cfg)
+    batch = _lm_batch(cfg, 8, 16, 4, device)
+    out = []
+    for micro in (1, 4):
+        model = api.init(torch.Generator().manual_seed(5), cfg,
+                         torch.float32, device)
+        step = make_train_step(cfg, api, microbatches=micro)
+        model, _, m = step(model, adamw_init(model), batch, 0)
+        out.append((model.state_dict(), float(m["loss"])))
+    loss_rel = abs(out[1][1] / out[0][1] - 1)
+    err = max(_max_err(out[0][0][k], out[1][0][k]) for k in out[0][0])
+    say("lm", part="microbatches", micro=4, loss_rel=f"{loss_rel:.3g}",
+        params_max_abs_diff=f"{err:.3g}")
+    if not (loss_rel <= 1e-5 and err < 5e-5):
+        raise AssertionError(f"microbatches=4 differs from 1: {loss_rel} "
+                             f"{err}")
+    return dict(loss_rel=loss_rel, params_max_abs_diff=err)
+
+
+def lm_hybrid_sync(cfg, device):
+    """Two pods: two inner steps on their own data, card against host (each
+    pod's losses); then the host's pods and outer state on both sides
+    through two rounds of ``global_sync(compress=True)``, the second with
+    no inner steps, so that it exchanges the first round's residuals alone:
+    the anchor, the momentum and the int8 residuals (see
+    ``LM_SYNC_RTOL``)."""
+    import copy
+    import torch
+    from repro_torch.core.hybrid_sync import (global_sync, inner_steps,
+                                              outer_init, stack_pods)
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.trainer import make_train_step
+    api = get_model(cfg)
+    step_fn = make_train_step(cfg, api, peak_lr=LM_FAMILY_LR, warmup=1)
+    res = {}
+    for side, dev in (("host", "cpu"), ("card", device)):
+        model = api.init(torch.Generator().manual_seed(6), cfg,
+                         torch.float32, dev)
+        pods, opts = stack_pods(model, 2), stack_pods(adamw_init(model), 2)
+        losses = []
+        for step in range(2):
+            b = [_lm_batch(cfg, 4, 16, 10 * pod + step, dev)
+                 for pod in range(2)]
+            pods, opts, m = inner_steps(step_fn, pods, opts,
+                                        {k: torch.stack([x[k] for x in b])
+                                         for k in b[0]}, step)
+            losses.append(m["loss"].cpu())
+        res[side] = dict(losses=torch.stack(losses), pods=pods,
+                         outer=outer_init(model, 2))
+    h, c = res["host"], res["card"]
+    loss_rel = float((c["losses"] / h["losses"] - 1).abs().max())
+
+    def to(tree):
+        return {k: v.to(device) for k, v in tree.items()}
+
+    sides = {"host": (h["pods"], h["outer"]),
+             "card": ([copy.deepcopy(p).to(device) for p in h["pods"]],
+                      dataclasses.replace(
+                          h["outer"], anchor=to(h["outer"].anchor),
+                          momentum=to(h["outer"].momentum),
+                          ef=dataclasses.replace(
+                              h["outer"].ef,
+                              residual=to(h["outer"].ef.residual))))}
+    errs, scale = dict(loss_rel=loss_rel), None
+    for rnd in (1, 2):
+        for side, (pods, outer) in sides.items():
+            sides[side] = global_sync(pods, outer, compress=True)
+        ho, co = sides["host"][1], sides["card"][1]
+        if scale is None:               # about half of each leaf's step
+            scale = _absmax(ho.ef.residual)
+        errs[f"anchor_{rnd}"] = _leafwise_rel(co.anchor, ho.anchor, scale)
+        errs[f"momentum_{rnd}"] = _leafwise_rel(co.momentum, ho.momentum,
+                                                scale)
+        if rnd == 1:
+            errs["residual_1"] = _leafwise_rel(co.ef.residual,
+                                               ho.ef.residual, scale)
+    say("lm", part="hybrid_sync", pods=2, inner_steps=2, compress=True,
+        rounds=2, **{k: f"{v:.3g}" for k, v in errs.items()})
+    if not (loss_rel <= LM_FAMILY_ATOL
+            and max(v for k, v in errs.items() if k != "loss_rel")
+            <= LM_SYNC_RTOL):
+        raise AssertionError(f"hybrid sync: card and host differ: {errs}")
+    return errs
+
+
+def phase_lm():
+    """The LM substrate on the card, float32 with TF32 off: demo-100m
+    serving and training, then every family at smoke size, card against
+    host."""
+    import tempfile
+    import torch
+    from repro_torch.configs.lm_smoke import SMOKE_FAMILIES
+    from repro_torch.models.registry import count_params, get_model
+    t0 = time.perf_counter()
+    device = torch.device(LM_DEVICE)
+    cfg = LM_CFG
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = dict(model=cfg.name, params=count_params(cfg),
+               active_params=count_params(cfg, active_only=True))
+    say("lm", model=cfg.name, params=out["params"])
+    try:
+        model = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                    torch.float32, device)
+        out["serve"] = lm_serve(cfg, model, device)
+        del model
+        torch.cuda.empty_cache()
+        # embedding backward accumulates with atomics unless asked not to:
+        # the resumed run and each family's step wiring are held bit for bit
+        torch.use_deterministic_algorithms(True)
+        try:
+            with tempfile.TemporaryDirectory(
+                    dir=os.path.join(ROOT, "build")) as wd:
+                out["train"] = lm_train(cfg, device, wd)
+            torch.cuda.empty_cache()
+            out["families"] = {name: lm_family(name, fcfg, device)
+                               for name, fcfg in SMOKE_FAMILIES.items()}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["microbatches"] = lm_microbatches(SMOKE_FAMILIES["dense_gqa"],
+                                              device)
+        out["hybrid_sync"] = lm_hybrid_sync(SMOKE_FAMILIES["dense_gqa"],
+                                            device)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    secs = time.perf_counter() - t0
+    say("lm", phase_s=f"{secs:.1f}")
+    out["phase_s"] = secs
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_s, mark = {}, [t0]
@@ -2507,6 +3024,10 @@ def main() -> int:
     lap("serve")
     obs = phase_obs(sssp_graph, sssp_want, pr_graph, pr_want)
     lap("obs")
+    del sssp_graph, pr_graph
+    torch.cuda.empty_cache()
+    lm = phase_lm()
+    lap("lm")
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -2531,7 +3052,7 @@ def main() -> int:
                        kernel_cases=report, kernels=kernels,
                        profiles=profiles, engines=engines, apps=apps,
                        io=io, ft=ft, serve=serve, obs=obs, dist=dist,
-                       phase_s=phase_s), f, indent=1)
+                       lm=lm, phase_s=phase_s), f, indent=1)
 
     say("done", seconds=f"{time.perf_counter() - t0:.1f}",
         phase_s=json.dumps(phase_s).replace(" ", ""))

@@ -11,6 +11,15 @@ values — dataclasses become dicts of their fields, tuples become lists,
 array leaves become numpy arrays, static fields stay Python values.  An
 engine checkpoint crosses on disk: :func:`engine_state_from_checkpoint`
 reads one that either package wrote.
+
+The LM substrate's weights cross the same way.  The reference stacks its
+scanned units on a leading axis (``stack.units.<leaf>[i]``); the port keeps
+one module per unit (``stack.units.<i>.<leaf>``).
+:func:`lm_params_from_numpy` unstacks a reference param tree into the
+port's model and :func:`lm_params_to_numpy` stacks it back; the same pairs
+exist for ``AdamWState`` and ``OuterState`` (whose moments and residuals
+the port keys by parameter name), and :func:`lm_cache_to_numpy` gives a
+port decode cache the reference's layout.
 """
 
 from __future__ import annotations
@@ -31,7 +40,10 @@ from repro_torch.core.runtime import Counters, EngineState
 from repro_torch.device import resolve_device
 
 __all__ = ["to_numpy", "graph_from_numpy", "engine_state_from_numpy",
-           "engine_state_from_checkpoint"]
+           "engine_state_from_checkpoint", "lm_params_from_numpy",
+           "lm_params_to_numpy", "adamw_state_from_numpy",
+           "adamw_state_to_numpy", "outer_state_from_numpy",
+           "outer_state_to_numpy", "lm_cache_to_numpy"]
 
 
 def to_numpy(obj: Any) -> Any:
@@ -46,7 +58,9 @@ def to_numpy(obj: Any) -> Any:
     if isinstance(obj, (tuple, list)):
         return [to_numpy(v) for v in obj]
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+        # .cpu().numpy() of a host tensor is a view of its storage
+        t = obj.detach()
+        return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
     if hasattr(obj, "__array__"):          # numpy / reference arrays
         return np.asarray(obj)
     return obj
@@ -142,3 +156,172 @@ def engine_state_from_checkpoint(path: str, like: EngineState, device=None
                 f"EngineState template wants {want}{tuple(leaf.shape)}")
         out.append(_tensor(a, device).to(leaf.dtype))
     return _unflatten(like, iter(out)), int(manifest["step"])
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate
+# ---------------------------------------------------------------------------
+
+def _stack_trees(trees: list, axis: int):
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _stack_trees([t[k] for t in trees], axis) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack_trees([t[i] for t in trees], axis)
+                for i in range(len(first))]
+    return np.stack([np.asarray(t) for t in trees], axis=axis)
+
+
+def _stack_units(tree, axis: int):
+    """The reference's layout of a port tree: every list of per-unit trees
+    under a ``units`` key stacked on ``axis``."""
+    if isinstance(tree, Mapping):
+        return {k: (_stack_trees([_stack_units(u, axis) for u in v], axis)
+                    if k == "units" else _stack_units(v, axis))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_stack_units(v, axis) for v in tree]
+    return tree
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, Mapping):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _take(tree, i: int, axis: int):
+    if isinstance(tree, Mapping):
+        return {k: _take(v, i, axis) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_take(v, i, axis) for v in tree]
+    return np.take(np.asarray(tree), i, axis=axis)
+
+
+def _unstack_units(tree, axis: int):
+    """The port's layout of a reference tree: the stacked tree under every
+    ``units`` key split along ``axis`` into a list of per-unit trees."""
+    if isinstance(tree, Mapping):
+        out = {}
+        for k, v in tree.items():
+            if k == "units":
+                n = np.shape(_leaves(v)[0])[axis]
+                out[k] = [_take(v, i, axis) for i in range(n)]
+            else:
+                out[k] = _unstack_units(v, axis)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [_unstack_units(v, axis) for v in tree]
+    return tree
+
+
+def _flat(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Dotted names (the port's parameter names) -> leaves."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}{k}."))
+    return out
+
+
+def _tree_of(module: torch.nn.Module, leaf, prefix: str = ""):
+    """``module``'s parameter tree (nodes as dicts, ``ModuleList`` as
+    lists) with each parameter replaced by ``leaf(name)``."""
+    if isinstance(module, torch.nn.ModuleList):
+        return [_tree_of(c, leaf, f"{prefix}{i}.")
+                for i, c in enumerate(module)]
+    out = {k: leaf(prefix + k)
+           for k, _ in module.named_parameters(recurse=False)}
+    out.update({k: _tree_of(c, leaf, f"{prefix}{k}.")
+                for k, c in module.named_children()})
+    return out
+
+
+def _skeleton(cfg) -> torch.nn.Module:
+    from repro_torch.models.registry import param_shapes
+    return param_shapes(cfg, torch.float32)
+
+
+def _named_from_numpy(tree, cfg, device, axis: int = 0
+                      ) -> dict[str, torch.Tensor]:
+    """A reference param-shaped tree as the port's ``{name: tensor}``,
+    checked against the names and shapes of ``cfg``'s model (``axis``:
+    where the reference stacks units, after any pod axis)."""
+    named = _flat(_unstack_units(tree, axis))
+    want = dict(_skeleton(cfg).named_parameters())
+    if set(named) != set(want):
+        raise ValueError(
+            f"tree does not hold {cfg.name}'s parameters: missing "
+            f"{sorted(set(want) - set(named))}, unknown "
+            f"{sorted(set(named) - set(want))}")
+    pod = () if axis == 0 else np.shape(_leaves(tree)[0])[:axis]
+    for k, p in want.items():
+        if tuple(named[k].shape) != pod + tuple(p.shape):
+            raise ValueError(f"{k}: shape {named[k].shape}, {cfg.name} "
+                             f"wants {pod + tuple(p.shape)}")
+    device = resolve_device(device)
+    return {k: _tensor(a, device) for k, a in named.items()}
+
+
+def _numpy_like(cfg, values: Mapping, axis: int = 0) -> dict:
+    """The reference's param tree of ``cfg`` with ``values[name]`` at each
+    parameter (units stacked on ``axis``)."""
+    return _stack_units(_tree_of(_skeleton(cfg),
+                                 lambda k: to_numpy(values[k])), axis)
+
+
+def lm_params_from_numpy(tree: Mapping, cfg, device=None) -> torch.nn.Module:
+    """The port's model for ``cfg`` holding a reference param tree
+    (``to_numpy(params)``: stacked units, every leaf's dtype kept)."""
+    model = _skeleton(cfg)
+    model.load_state_dict(_named_from_numpy(tree, cfg, device), assign=True)
+    return model
+
+
+def lm_params_to_numpy(model: torch.nn.Module, cfg) -> dict:
+    """The reference's param tree (stacked units) of a port model."""
+    return _numpy_like(cfg, dict(model.named_parameters()))
+
+
+def adamw_state_from_numpy(fields: Mapping, cfg, device=None):
+    """The port's ``AdamWState`` from a reference state's fields
+    (``to_numpy(state)``)."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(mu=_named_from_numpy(fields["mu"], cfg, device),
+                      nu=_named_from_numpy(fields["nu"], cfg, device),
+                      step=_tensor(fields["step"], resolve_device(device)))
+
+
+def adamw_state_to_numpy(state, cfg) -> dict:
+    return {"mu": _numpy_like(cfg, state.mu), "nu": _numpy_like(cfg, state.nu),
+            "step": to_numpy(state.step)}
+
+
+def outer_state_from_numpy(fields: Mapping, cfg, device=None):
+    """The port's ``OuterState`` from a reference state's fields; the
+    residuals keep their leading pod axis."""
+    from repro_torch.core.hybrid_sync import OuterState
+    from repro_torch.optim.compression import ErrorFeedbackState
+    return OuterState(
+        anchor=_named_from_numpy(fields["anchor"], cfg, device),
+        momentum=_named_from_numpy(fields["momentum"], cfg, device),
+        ef=ErrorFeedbackState(residual=_named_from_numpy(
+            fields["ef"]["residual"], cfg, device, axis=1)))
+
+
+def outer_state_to_numpy(state, cfg) -> dict:
+    return {"anchor": _numpy_like(cfg, state.anchor),
+            "momentum": _numpy_like(cfg, state.momentum),
+            "ef": {"residual": _numpy_like(cfg, state.ef.residual, axis=1)}}
+
+
+def lm_cache_to_numpy(cache: Mapping) -> dict:
+    """The reference's layout (stacked units) of a port decode cache."""
+    return _stack_units(to_numpy(cache), 0)

@@ -9,9 +9,9 @@ import sys
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "src")
 
-# the graph I/O, checkpoint, fault-tolerance, observability, serving and
-# distributed modules: each must be found by the walk below, and import
-# clean like the rest
+# the graph I/O, checkpoint, fault-tolerance, observability, serving,
+# distributed and LM-substrate modules: each must be found by the walk
+# below, and import clean like the rest
 IO_FT_MODULES = (
     "repro_torch.obs", "repro_torch.obs.clock", "repro_torch.obs.metrics",
     "repro_torch.obs.export", "repro_torch.obs.trace",
@@ -27,6 +27,16 @@ IO_FT_MODULES = (
     "repro_torch.ft.straggler", "repro_torch.ft.elastic",
     "repro_torch.ft.driver",
     "repro_torch.partition.quality", "repro_torch.core.distributed",
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.graphhp_paper", "repro_torch.configs.lm_smoke",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.moe",
+    "repro_torch.models.mamba", "repro_torch.models.stack",
+    "repro_torch.models.transformer", "repro_torch.models.registry",
+    "repro_torch.data.pipeline", "repro_torch.optim",
+    "repro_torch.optim.schedule", "repro_torch.optim.adamw",
+    "repro_torch.optim.compression", "repro_torch.train",
+    "repro_torch.train.trainer", "repro_torch.core.hybrid_sync",
 )
 
 _PROBE = """
