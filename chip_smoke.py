@@ -49,7 +49,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
               shapes against its plain version.  Prints seconds, per-rank
               pseudo-supersteps, host syncs, collectives and exchange
               bytes per iteration, staged bytes and peak device memory.
-              Then SSSP over a bfloat16 wire, traced, stopped at 40
+              Then SSSP over a bfloat16 wire, traced, stopped at 24
               iterations: its Dijkstra error printed, not held (see
               ``phase_dist``).
 6. kernels  — every kernel's wrapper on the card at every shape the main
@@ -181,13 +181,50 @@ Phases, one line each (any failure exits non-zero and prints no result):
               inner steps, then two rounds of
               ``global_sync(compress=True)`` on the same pods, card against
               host (``LM_SYNC_RTOL``).
+15. mesh     — the LM substrate's sharding (``repro_torch.sharding``,
+              ``launch``) on a (data 2, model 2) ``DeviceMesh`` of 4
+              spawned ranks sharing the card over gloo (every collective
+              staged through pinned host memory), ``demo-100m`` at full
+              size, float32, TF32 off, its weights drawn once on the host
+              and handed to the ranks.  (b) the lm phase's 4 requests with
+              the batch over data and the 288-row cache's sequence over
+              model (``decode_axis``): logits within 1e-4 of the
+              single-device decode on the card, tokens equal.  (a) 3
+              sharded train steps (parameters and AdamW moments placed by
+              the rules, weights gathered at use) against 3 single-device
+              steps on the card from the same weights and batches, each
+              value against its own scale: each step's loss
+              (``MESH_LOSS_RTOL``) and clipping norm (``MESH_NORM_RTOL``),
+              each leaf's first moment against its largest |mu|
+              (``MESH_MU_RTOL``) and its weights after step 3 against its
+              largest move (``MESH_UPDATE_RTOL``); each rank's parameter
+              and moment bytes (the caching allocator's requested bytes;
+              its ``memory_allocated`` blocks are printed beside them)
+              equal the dry run's per-rank argument bytes for the same
+              mesh.  (c) two pods on ranks 0 and 1, 2 inner steps each,
+              then two
+              ``global_sync(compress=True, group=)`` rounds (the second
+              the residuals alone), bit for bit the one-process sync of
+              the same pods, the pods equal after it; wire bytes against
+              the float32 deltas'.  (d) ``python -m
+              repro_torch.launch.dryrun`` of demo-100m (the four shapes ×
+              both production meshes, the graph and sync cells) on the
+              host on ``meta`` tensors, one process per (shape, mesh) and
+              one for the graph and sync cells, started when the ranks are
+              done (no timed run shares the host with it):
+              per-rank bytes, FLOPs and collective bytes, ``long_500k``
+              skipped with the reference's reason.
 
 Every phase prints its wall time; the ``[done]`` line gives the seconds
 of each phase (``phase_s``), set-up and checks included.
 
 Cut to stay inside the 1200 s limit with ``dist``: ``apps`` reruns one
 configuration per app on the host (was all six), ``ft``'s PageRank
-stop-and-resume checkpoints every 5th iteration (was every one).
+stop-and-resume checkpoints every 5th iteration (was every one); and
+with ``mesh``: ``dist``'s bfloat16-wire run stops at 24 iterations (was
+40), and the PageRank oracle (200 scipy power-iteration steps) is
+computed once and held against by every PageRank check (was once per
+check, four times).
 
 The third-to-last line is ``{"kernels": [...]}``, the line after it the
 card's name and power limit, and the last line
@@ -469,19 +506,33 @@ def _rel_err(got, want):
     return float(np.max(np.abs(got - want) / np.maximum(want, 1e-30)))
 
 
-def check_pagerank(graph, es, data):
+_PR_ORACLE: dict = {}
+
+
+def pagerank_oracle(data):
+    """scipy's power iteration on the graph of ``data``, computed once per
+    graph (every PageRank check of the run holds its ranks to it)."""
     import numpy as np
     from scipy.sparse import csr_matrix
+    edges, _, n = data
+    key = id(edges)
+    if key not in _PR_ORACLE:
+        deg = np.maximum(np.bincount(edges[:, 0], minlength=n), 1)
+        a = csr_matrix((0.85 / deg[edges[:, 0]], (edges[:, 1], edges[:, 0])),
+                       shape=(n, n))
+        r = np.full(n, 0.15)
+        for _ in range(200):
+            r = 0.15 + a @ r
+        _PR_ORACLE[key] = (edges, r)       # edges kept: the id stays theirs
+    return _PR_ORACLE[key][1]
+
+
+def check_pagerank(graph, es, data):
+    import numpy as np
     from repro_torch import unpack_vertex
 
-    edges, _, n = data
     got = unpack_vertex(graph, es.state["rank"])
-    deg = np.maximum(np.bincount(edges[:, 0], minlength=n), 1)
-    a = csr_matrix((0.85 / deg[edges[:, 0]], (edges[:, 1], edges[:, 0])),
-                   shape=(n, n))
-    r = np.full(n, 0.15)
-    for _ in range(200):
-        r = 0.15 + a @ r
+    r = pagerank_oracle(data)
     err = float(np.max(np.abs(got - r)))
     np.testing.assert_allclose(got, r, rtol=2e-3, atol=5e-3)
     if not np.isfinite(got).all():
@@ -499,8 +550,10 @@ DIST_WORLD = 4
 DIST_DEVICE = "cuda:0"    # every rank on the one card
 DIST_DEADLINE_S = 300.0   # per spawn: a hung rank fails the phase
 # the bf16-wire grid run stops here: at this scale it does not reach
-# quiescence (see phase_dist)
-DIST_BF16_MAX_ITERS = 40
+# quiescence (see phase_dist).  24 iterations (40 before the mesh phase
+# joined the smoke): past the 20 in which the float32 run reaches every
+# vertex, so every distance is finite (12 left some at inf)
+DIST_BF16_MAX_ITERS = 24
 
 
 def dist_graphs(sssp_data, pr_data, pr_part):
@@ -2953,6 +3006,587 @@ def phase_lm():
     return out
 
 
+# --------------------------------------------------------------------------
+# mesh: the LM substrate's sharding on a DeviceMesh, four ranks on the card
+# --------------------------------------------------------------------------
+
+MESH_WORLD = 4
+MESH_DEVICE = "cuda:0"    # every rank on the one card (gloo, staged)
+MESH_DATA, MESH_MODEL = 2, 2
+MESH_TRAIN_STEPS = 3
+MESH_DEADLINE_S = 300.0
+# the sharded steps against the single-device steps from the same weights
+# and batches: the data ranks' gradient sum and the clipping norm over the
+# shards reassociate float32 sums, so neither is bit for bit.  Each value
+# is held against its own scale (PERF.md section 6 gives the prediction,
+# written before the first run, and the readings of two broken steps): a
+# leaf's weights against the leaf's largest move over the 3 steps (AdamW
+# moves a weight by ~lr a step whatever its gradient's size, so the
+# weights see a skipped update or a wrong gradient, not its scale), its
+# first moment against the leaf's largest |mu| and each step's clipping
+# norm (these see the gradient's scale: a norm summed over the wrong
+# shards, or gradients not summed over data), and each step's loss
+MESH_UPDATE_RTOL = 0.1
+MESH_MU_RTOL = 1e-4
+MESH_NORM_RTOL = 1e-5
+MESH_LOSS_RTOL = 1e-5
+MESH_SYNC_LR = 1e-4       # the pods' inner steps (LM_FAMILY_LR's)
+DRYRUN_DEADLINE_S = 300.0
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def start_dryrun():
+    """The dry run of ``LM_CFG`` (every shape on both production meshes,
+    the graph cells, the sync cell) on the host on ``meta`` tensors, one
+    process of one thread per (shape, mesh) and one for the graph and sync
+    cells, all started together.  The phase starts them once its ranks are
+    done, so no timed run shares the host with them."""
+    import shutil
+    out = os.path.join(ROOT, "build", "mesh_dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    code = ("import sys, torch\n"
+            "torch.set_num_threads(1)\n"
+            "from repro_torch.launch import dryrun as d\n"
+            "out, arch, what = sys.argv[1], sys.argv[2], sys.argv[3:]\n"
+            "if what == ['graph', 'sync']:\n"
+            "    rc = d.main(['--graphhp', '--out', out])\n"
+            "    r = d.run_sync_cell(arch, out)\n"
+            "    sys.exit(rc or r['status'] != 'ok')\n"
+            "sys.exit(d.main(['--arch', arch, '--out', out] + what))\n")
+    jobs = [["--shape", sh, "--mesh", m] for sh in DRYRUN_SHAPES
+            for m in ("single", "multi")] + [["graph", "sync"]]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs, logs = [], []
+    for i, job in enumerate(jobs):
+        logs.append(open(os.path.join(out, f"log_{i}.txt"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, out, LM_CFG.name, *job], cwd=ROOT,
+            stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
+    return dict(procs=procs, out=out, logs=logs, t0=time.perf_counter())
+
+
+def stop_dryrun(dry):
+    if dry is None:
+        return
+    for proc in dry["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    for log in dry["logs"]:
+        log.close()
+
+
+def _meta_model(cfg, state, device=None):
+    """The model of ``state``'s weights with no init of its own: copies on
+    ``device``, or ``state``'s own tensors (to be read, not trained)."""
+    import torch
+    from repro_torch.models.registry import get_model
+    model = get_model(cfg).init(torch.Generator(), cfg, torch.float32,
+                                "meta")
+    if device is not None:
+        state = {k: v.to(device, copy=True) for k, v in state.items()}
+    model.load_state_dict(state, assign=True)
+    return model
+
+
+def _device_sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _allocated(device):
+    """(bytes the caching allocator was asked for, bytes of the blocks it
+    handed out) on ``device``: ``memory_allocated`` counts whole blocks,
+    and a block whose remainder would be 1 MB or less is not split, so
+    only the requested bytes add up to the tensors' own."""
+    import torch
+    if device.type != "cuda":
+        return None, None
+    return (torch.cuda.memory_stats(device)["requested_bytes.all.current"],
+            torch.cuda.memory_allocated(device))
+
+
+def mesh_serve(cfg, serve, model, tokens, start, device, mesh=None):
+    """The lm phase's serving (``serve``: ``LM_SERVE``), on this rank's
+    rows of the batch and its cut of the cache when a mesh is given:
+    (logits of every step (b, 1 + steps, vocab), tokens, ms a step, the
+    decode axis)."""
+    import torch
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.util import shard_cache
+    api = get_model(cfg)
+    b, s, max_len, n_dec = (serve[k] for k in ("batch", "prompt",
+                                                "max_len", "decode"))
+    cache = api.init_cache(cfg, b, max_len, torch.float32, device)
+    axis = None
+    if mesh is not None:
+        rows, d = b // mesh.size(0), mesh.get_coordinate()[0]
+        tokens = tokens[d * rows:(d + 1) * rows]
+        start = start[d * rows:(d + 1) * rows]
+        cache, axis = shard_cache(cache, mesh)
+    with torch.no_grad():
+        logits, cache = api.prefill(model, {"tokens": tokens, "start": start},
+                                    cache, cfg, decode_axis=axis)
+        out, toks = [logits[:, -1]], []
+        _device_sync(device)
+        t = time.perf_counter()
+        for j in range(n_dec):
+            tok = out[-1].argmax(-1)[:, None]
+            toks.append(tok)
+            logits, cache = api.decode_step(model, tok, cache, s + j, cfg,
+                                            decode_axis=axis, kv_start=start)
+            out.append(logits[:, -1])
+        _device_sync(device)
+    ms = (time.perf_counter() - t) * 1e3 / n_dec
+    return (torch.stack(out, 1).cpu(), torch.cat(toks, 1).cpu(), ms, axis)
+
+
+def _mesh_step(cfg, train):
+    """The lm phase's train step (``train``: ``LM_TRAIN``)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import make_train_step
+    return make_train_step(cfg, get_model(cfg), peak_lr=train["peak_lr"],
+                           warmup=train["warmup"],
+                           total_steps=train["steps"])
+
+
+def _mesh_rank(rank, world, group, device, cfg, serve, train, state,
+               serve_in, batches, train_want, pod_batches):
+    """One rank of the mesh phase: (b) serving, (a) the sharded train
+    step, (c) the cross-pod sync; what rank 0 (and the other data rank's
+    model-0 rank, for serving) found."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import COMM, all_gather_rows, reset_comm
+    from repro_torch.core.hybrid_sync import global_sync, outer_init
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.optim.adamw import adamw_init, named
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    mesh = make_host_mesh(MESH_DATA, MESH_MODEL, device_type=device.type)
+    coord = tuple(mesh.get_coordinate())
+
+    # (b) serving: the model whole on each rank, the batch over data, the
+    # cache's sequence over model
+    model = _meta_model(cfg, state, device)
+    tokens, start = (t.to(device) for t in serve_in)
+    t = time.perf_counter()
+    with set_mesh(mesh):
+        logits, toks, ms, axis = mesh_serve(cfg, serve, model, tokens,
+                                            start, device, mesh)
+    out["serve"] = dict(coord=coord, logits=logits if coord[1] == 0 else None,
+                        tokens=toks, ms_per_step=ms, axis=axis,
+                        seconds=time.perf_counter() - t)
+    del model
+    torch.cuda.empty_cache()
+
+    # (a) the sharded train step: parameters and moments by the rules
+    out["train"] = mesh_train_rank(mesh, device, cfg, train, state, batches,
+                                   train_want)
+    torch.cuda.empty_cache()
+
+    # (c) two pods on ranks 0 and 1: inner steps on their own data, then
+    # two compressed exchanges over the pod group, the second carrying the
+    # first's residuals alone; each rank also runs the one-process sync on
+    # both pods (gathered) and holds its own result to it bit for bit
+    pods_group = dist.new_group([0, 1])
+    if rank < 2:
+        model = _meta_model(cfg, state, device)
+        outer = outer_init(model, 1)
+        opt = adamw_init(model)
+        step_fn = _mesh_step_sync(cfg)
+        for s, batch in enumerate(pod_batches[rank]):
+            model, opt, _ = step_fn(model, opt, {
+                k: v.to(device) for k, v in batch.items()}, s)
+        del opt
+        params = named(model)
+        both = all_gather_rows([p.detach()[None] for p in params.values()],
+                               group=pods_group)
+        pods = []
+        for i in range(2):
+            pod = copy.deepcopy(model)
+            with torch.no_grad():
+                for (k, p), g in zip(named(pod).items(), both):
+                    p.copy_(g[i])
+            pods.append(pod)
+        ref_outer = outer_init(model, 2)
+        ref_outer.anchor = {k: v.clone() for k, v in outer.anchor.items()}
+        same, round_comm = True, []
+        for rnd in range(2):
+            pods, ref_outer = global_sync(pods, ref_outer, compress=True)
+            reset_comm()
+            (model,), outer = global_sync([model], outer, compress=True,
+                                          group=pods_group)
+            round_comm.append(dict(COMM))
+            same = same and all(
+                torch.equal(outer.anchor[k], ref_outer.anchor[k])
+                and torch.equal(outer.momentum[k], ref_outer.momentum[k])
+                and torch.equal(outer.ef.residual[k][0],
+                                ref_outer.ef.residual[k][rank])
+                and torch.equal(p, outer.anchor[k])
+                for k, p in named(model).items())
+        n = sum(p.numel() for p in model.parameters())
+        out["sync"] = dict(bit_identical=same, comm=round_comm,
+                           f32_delta_bytes=2 * n * 4, params=n)
+    dist.barrier()
+    return out
+
+
+def mesh_train_rank(mesh, device, cfg, train, state, batches, want):
+    """(a) on this rank: the parameters and AdamW moments placed by the
+    rules (their bytes read from the allocator), ``MESH_TRAIN_STEPS``
+    sharded steps, then each leaf's largest error of its weights and of
+    its first moment against the same cut of the single-device run's
+    (``want``, from :func:`mesh_train_single`), the largest over the
+    ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.distributed import COMM, reset_comm
+    from repro_torch.launch.specs import arg_bytes, build_cell, shard_module
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.sharding.fsdp import all_reduce, local_of, sharding_of
+    from repro_torch.sharding.rules import batch_spec, param_specs
+    from repro_torch.sharding.util import named as named_sh
+    from repro_torch.sharding.util import (local_chunk, place_tree,
+                                           sanitize_specs)
+    shape = ShapeConfig("mesh_train", train["seq"], train["batch"], "train")
+    want_bytes = arg_bytes(build_cell(cfg, shape, mesh, False,
+                                      param_dtype=torch.float32))
+    model = _meta_model(cfg, state)
+    specs = sanitize_specs(param_specs(model), model, mesh)
+    _device_sync(device)
+    m0 = _allocated(device)
+    model = shard_module(model, named_sh(specs, mesh), device)
+    m1 = _allocated(device)
+    opt = adamw_init(model)
+    m2 = _allocated(device)
+    probe = torch.zeros((), dtype=torch.int32, device=device)
+    m3 = _allocated(device)         # the AdamW step scalar's block
+    del probe
+    got = ({"params": m1[0] - m0[0],
+            "moments": (m2[0] - m1[0]) - (m3[0] - m2[0])}
+           if m0[0] is not None else {})
+    blocks = ({"params": m1[1] - m0[1],
+               "moments": (m2[1] - m1[1]) - (m3[1] - m2[1])}
+              if m0[0] is not None else {})
+    step_fn = _mesh_step(cfg, train)
+    reset_comm()
+    losses, norms = [], []
+    _device_sync(device)
+    t = time.perf_counter()
+    for s, batch in enumerate(batches):
+        shard = named_sh(sanitize_specs(batch_spec(batch), batch, mesh),
+                         mesh)
+        model, opt, m = step_fn(model, opt, place_tree(batch, shard, device),
+                                s)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    _device_sync(device)
+    seconds = time.perf_counter() - t
+    comm = dict(COMM)
+    names = [k for k, _ in model.named_parameters()]
+    errs = torch.tensor([[
+        _max_err(p._local_tensor,
+                 local_chunk(want["params"][k], sharding_of(p))),
+        _max_err(local_of(opt.mu[k]),
+                 local_chunk(want["mu"][k], sharding_of(opt.mu[k])))]
+        for k, p in model.named_parameters()], dtype=torch.float64)
+    errs = all_reduce(errs, None, dist.ReduceOp.MAX)
+    del model, opt
+    return dict(bytes=got, block_bytes=blocks,
+                want_bytes={k: want_bytes[k] for k in ("params", "moments")},
+                losses=losses, grad_norms=norms,
+                weight_errs=dict(zip(names, errs[:, 0].tolist())),
+                mu_errs=dict(zip(names, errs[:, 1].tolist())),
+                seconds=seconds, comm=comm,
+                peak_GiB=(torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else 0.0))
+
+
+def mesh_train_readings(tr, want, state) -> dict:
+    """One rank's (a) against the single-device run: each leaf's weight
+    error over the leaf's largest move from ``state`` (the initial
+    weights), its first-moment error over its largest |mu|, and each
+    step's clipping norm and loss, relative.  The worst leaf of each."""
+    def worst(errs, scale):
+        rel = {k: _rel(e, scale[k]) for k, e in errs.items()}
+        k = max(rel, key=rel.get)
+        return rel[k], k
+
+    moved = {k: _max_err(want["params"][k], state[k]) for k in tr["weight_errs"]}
+    mu_max = {k: float(want["mu"][k].abs().max()) for k in tr["mu_errs"]}
+    w_rel, w_leaf = worst(tr["weight_errs"], moved)
+    mu_rel, mu_leaf = worst(tr["mu_errs"], mu_max)
+    return dict(
+        weights_rel=w_rel, weights_worst_leaf=w_leaf,
+        mu_rel=mu_rel, mu_worst_leaf=mu_leaf,
+        weights_max_abs_err=max(tr["weight_errs"].values()),
+        largest_move=max(moved.values()), smallest_move=min(moved.values()),
+        grad_norm_rel=max(abs(a / b - 1) for a, b in zip(
+            tr["grad_norms"], want["grad_norms"])),
+        loss_rel=max(abs(a / b - 1) for a, b in zip(tr["losses"],
+                                                    want["losses"])))
+
+
+def mesh_train_ok(r) -> bool:
+    return (r["loss_rel"] <= MESH_LOSS_RTOL
+            and r["grad_norm_rel"] <= MESH_NORM_RTOL
+            and r["mu_rel"] <= MESH_MU_RTOL
+            and r["weights_rel"] <= MESH_UPDATE_RTOL)
+
+
+def mesh_inputs(cfg) -> dict:
+    """The phase's host inputs: ``cfg``'s weights drawn once (a state dict
+    handed to every rank), the train batches, each pod's batches and the
+    serving prompts (``LM_SERVE``, left-padded)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.registry import get_model
+    host = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                               torch.float32, "cpu")
+    state = {k: v.detach() for k, v in host.state_dict().items()}
+    data = SyntheticTokens(DataConfig(
+        vocab=cfg.vocab, seq_len=LM_TRAIN["seq"],
+        global_batch=LM_TRAIN["batch"]))
+    batches = [{k: torch.from_numpy(v) for k, v in data.batch(s).items()}
+               for s in range(MESH_TRAIN_STEPS)]
+    pod_batches = [[{k: torch.from_numpy(v) for k, v in SyntheticTokens(
+        DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN["seq"],
+                   global_batch=LM_TRAIN["batch"] // 2,
+                   seed=1 + pod)).batch(s).items()} for s in range(2)]
+        for pod in range(2)]
+    b, s = LM_SERVE["batch"], LM_SERVE["prompt"]
+    start = s - torch.tensor(LM_PROMPT_LENS)
+    rng = np.random.RandomState(1)
+    tokens = torch.from_numpy(rng.randint(1, cfg.vocab, (b, s)))
+    tokens = torch.where(torch.arange(s)[None] >= start[:, None], tokens, 0)
+    return dict(state=state, batches=batches, pod_batches=pod_batches,
+                serve_in=(tokens, start))
+
+
+def mesh_train_single(cfg, state, batches, device) -> dict:
+    """The single-device steps on ``device`` from ``state``: weights and
+    first moments after the last (on the host), each step's loss and
+    clipping norm."""
+    import torch
+    from repro_torch.optim.adamw import adamw_init
+    model = _meta_model(cfg, state, device)
+    opt, step_fn = adamw_init(model), _mesh_step(cfg, LM_TRAIN)
+    losses, norms = [], []
+    for step, batch in enumerate(batches):
+        model, opt, m = step_fn(model, opt, {
+            k: v.to(device) for k, v in batch.items()}, step)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    want = dict(params={k: v.detach().cpu()
+                        for k, v in model.named_parameters()},
+                mu={k: v.cpu() for k, v in opt.mu.items()},
+                losses=losses, grad_norms=norms)
+    del model, opt
+    torch.cuda.empty_cache()
+    return want
+
+
+def _mesh_step_sync(cfg):
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import make_train_step
+    return make_train_step(cfg, get_model(cfg), peak_lr=MESH_SYNC_LR,
+                           warmup=1)
+
+
+def _dryrun_checks(dry):
+    """Wait for the dry run, print each cell, fail on a wrong status."""
+    rc = [proc.wait(timeout=max(1.0, DRYRUN_DEADLINE_S
+                                - (time.perf_counter() - dry["t0"])))
+          for proc in dry["procs"]]
+    waited = time.perf_counter() - dry["t0"]
+    recs = {}
+    for f in sorted(os.listdir(dry["out"])):
+        if f.endswith(".json"):
+            with open(os.path.join(dry["out"], f)) as fh:
+                r = json.load(fh)
+            recs[(r["shape"], r["mesh"])] = r
+    for (shape, mesh), r in sorted(recs.items()):
+        mem = r.get("memory", {})
+        say("mesh", part="dryrun", arch=r["arch"], shape=shape, mesh=mesh,
+            status=r["status"],
+            argument_bytes_per_rank=mem.get("argument_bytes"),
+            peak_bytes_per_rank=mem.get("peak_bytes"),
+            flops_per_rank=r.get("flops"),
+            collective_bytes_per_rank=r.get(
+                "collective_bytes", r.get("exchange_bytes")),
+            f32_delta_gather_bytes=r.get("f32_delta_gather_bytes"),
+            reason=json.dumps(r.get("reason", r.get("error", ""))))
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.specs import runnable
+    bad = [k for k, r in recs.items() if r["status"] == "fail"]
+    want = {(s, m) for s in DRYRUN_SHAPES for m in ("single", "multi")} | {
+        ("hybrid_iteration", "single"), ("hybrid_iteration", "multi"),
+        ("global_sync", "multi")}
+    missing = sorted(want - set(recs))
+    skips = [s for s in DRYRUN_SHAPES
+             if not runnable(LM_CFG, SHAPES[s])[0]]
+    wrong = [k for k in want - set(missing)
+             if (recs[k]["status"] == "skip") != (k[0] in skips)]
+    if any(rc) or bad or missing or wrong:
+        raise AssertionError(f"dry run: exits {rc}, failed {bad}, missing "
+                             f"{missing}, wrong status {wrong} (see "
+                             f"{dry['out']}/log_*.txt)")
+    return dict(seconds_since_start=waited, cells={
+        f"{k[0]}:{k[1]}": {x: r.get(x) for x in (
+            "status", "memory", "flops", "collectives", "collective_bytes",
+            "exchange_bytes", "f32_delta_gather_bytes", "reason",
+            "elapsed_s")} for k, r in recs.items()})
+
+
+def phase_mesh():
+    """The LM substrate's sharding on a (data 2, model 2) DeviceMesh of
+    four ranks on the card over gloo: demo-100m at full size, float32,
+    TF32 off; then the dry run, started once the ranks are done."""
+    import torch
+    from repro_torch.core.distributed import spawn_ranks
+    t0 = time.perf_counter()
+    device = torch.device(LM_DEVICE)
+    cfg = LM_CFG
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, dry = {}, None
+    try:
+        inp = mesh_inputs(cfg)
+        state, (tokens, start) = inp["state"], inp["serve_in"]
+        init_s = time.perf_counter() - t0
+
+        # the single-device runs on the card, from the same weights
+        model = _meta_model(cfg, state, device)
+        want_logits, want_toks, want_ms, _ = mesh_serve(
+            cfg, LM_SERVE, model, tokens.to(device), start.to(device), device)
+        del model
+        train_want = mesh_train_single(cfg, state, inp["batches"], device)
+        ref_s = time.perf_counter() - t0 - init_s
+
+        t = time.perf_counter()
+        ranks = spawn_ranks(_mesh_rank, MESH_WORLD, "gloo", MESH_DEVICE,
+                            args=(cfg, dict(LM_SERVE), dict(LM_TRAIN), state,
+                                  (tokens, start), inp["batches"],
+                                  train_want, inp["pod_batches"]),
+                            deadline_s=MESH_DEADLINE_S)
+        ranks_s = time.perf_counter() - t
+        dry = start_dryrun()
+
+        # (b) serving: the rows of each data rank, from its model-0 rank
+        rows = sorted((r["serve"]["coord"], r["serve"]) for r in ranks
+                      if r["serve"]["coord"][1] == 0)
+        logits = torch.cat([x["logits"] for _, x in rows])
+        toks = torch.cat([x["tokens"] for _, x in rows])
+        serve_err = _max_err(logits, want_logits)
+        serve_same = torch.equal(toks, want_toks)
+        axes = {r["serve"]["axis"] for r in ranks}
+        out["serve"] = dict(
+            max_abs_err=serve_err, tokens_equal=serve_same,
+            tolerance=LM_DECODE_ATOL, decode_axis=sorted(axes),
+            ms_per_step=max(r["serve"]["ms_per_step"] for r in ranks),
+            single_device_ms_per_step=want_ms)
+        say("mesh", part="serve", mesh=f"{MESH_DATA}x{MESH_MODEL}",
+            requests=LM_SERVE["batch"], max_len=LM_SERVE["max_len"],
+            decode_steps=LM_SERVE["decode"],
+            max_abs_err=f"{serve_err:.4g}", tolerance=LM_DECODE_ATOL,
+            tokens_equal=serve_same,
+            ms_per_step=f"{out['serve']['ms_per_step']:.2f}",
+            single_device_ms_per_step=f"{want_ms:.2f}")
+
+        # (a) training
+        tr = ranks[0]["train"]
+        got = mesh_train_readings(tr, train_want, state)
+        train_ok = mesh_train_ok(got)
+        bytes_ok = all(r["train"]["bytes"] == r["train"]["want_bytes"]
+                       for r in ranks)
+        out["train"] = dict(
+            steps=MESH_TRAIN_STEPS, losses=tr["losses"],
+            single_device_losses=train_want["losses"],
+            grad_norms=tr["grad_norms"],
+            single_device_grad_norms=train_want["grad_norms"], **got,
+            tolerances=dict(loss=MESH_LOSS_RTOL, grad_norm=MESH_NORM_RTOL,
+                            mu=MESH_MU_RTOL, weights=MESH_UPDATE_RTOL),
+            bytes_per_rank=[r["train"]["bytes"] for r in ranks],
+            block_bytes_per_rank=[r["train"]["block_bytes"] for r in ranks],
+            dryrun_bytes_per_rank=tr["want_bytes"], bytes_equal=bytes_ok,
+            seconds=max(r["train"]["seconds"] for r in ranks),
+            comm=tr["comm"], peak_GiB=max(r["train"]["peak_GiB"]
+                                          for r in ranks))
+        say("mesh", part="train", mesh=f"{MESH_DATA}x{MESH_MODEL}",
+            steps=MESH_TRAIN_STEPS, batch=LM_TRAIN["batch"],
+            seq=LM_TRAIN["seq"],
+            losses=json.dumps([round(x, 6) for x in tr["losses"]]),
+            grad_norms=json.dumps([round(x, 6) for x in tr["grad_norms"]]),
+            loss_rel=f"{got['loss_rel']:.3g}", loss_rtol=MESH_LOSS_RTOL,
+            grad_norm_rel=f"{got['grad_norm_rel']:.3g}",
+            grad_norm_rtol=MESH_NORM_RTOL,
+            mu_rel=f"{got['mu_rel']:.3g}", mu_leaf=got["mu_worst_leaf"],
+            mu_rtol=MESH_MU_RTOL,
+            weights_rel=f"{got['weights_rel']:.3g}",
+            weights_leaf=got["weights_worst_leaf"],
+            weights_rtol=MESH_UPDATE_RTOL,
+            weights_max_abs_err=f"{got['weights_max_abs_err']:.3g}",
+            move_range=f"{got['smallest_move']:.3g}..{got['largest_move']:.3g}",
+            param_bytes_per_rank=tr["bytes"].get("params"),
+            moment_bytes_per_rank=tr["bytes"].get("moments"),
+            allocated_block_bytes=json.dumps(tr["block_bytes"]).replace(
+                " ", ""),
+            dryrun_bytes=json.dumps(tr["want_bytes"]).replace(" ", ""),
+            bytes_equal=bytes_ok,
+            s_per_step=f"{out['train']['seconds'] / MESH_TRAIN_STEPS:.2f}",
+            collectives=tr["comm"]["collectives"],
+            wire_bytes=tr["comm"]["wire_bytes"],
+            staged_bytes=tr["comm"]["staged_bytes"],
+            peak_GiB=f"{out['train']['peak_GiB']:.2f}")
+
+        # (c) the cross-pod sync
+        syncs = [r["sync"] for r in ranks[:2]]
+        sync_same = all(x["bit_identical"] for x in syncs)
+        wire = [c["wire_bytes"] for c in syncs[0]["comm"]]
+        out["sync"] = dict(bit_identical=sync_same, wire_bytes=wire,
+                           f32_delta_bytes=syncs[0]["f32_delta_bytes"],
+                           params=syncs[0]["params"])
+        say("mesh", part="sync", pods=2, inner_steps=2, rounds=2,
+            compress=True, bit_identical=sync_same,
+            wire_bytes_per_round=json.dumps(wire),
+            f32_delta_bytes_per_round=syncs[0]["f32_delta_bytes"])
+
+        t = time.perf_counter()
+        out["dryrun"] = _dryrun_checks(dry)
+        dryrun_s = time.perf_counter() - t
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        stop_dryrun(dry)
+    secs = time.perf_counter() - t0
+    out.update(phase_s=secs, init_s=init_s, single_device_s=ref_s,
+               ranks_s=ranks_s, dryrun_wait_s=dryrun_s)
+    say("mesh", host_init_s=f"{init_s:.1f}", single_device_s=f"{ref_s:.1f}",
+        ranks_s=f"{ranks_s:.1f}",
+        dryrun_s=f"{out['dryrun']['seconds_since_start']:.1f}",
+        phase_s=f"{secs:.1f}")
+    if not (serve_err <= LM_DECODE_ATOL and serve_same
+            and axes == {"model"}):
+        raise AssertionError(f"mesh serve: err {serve_err}, tokens equal "
+                             f"{serve_same}, axes {axes}")
+    if not (train_ok and bytes_ok):
+        raise AssertionError(f"mesh train: {got}, bytes {bytes_ok}")
+    if not (sync_same and all(w < syncs[0]["f32_delta_bytes"] / 3.9
+                              for w in wire)):
+        raise AssertionError(f"mesh sync: bit identical {sync_same}, wire "
+                             f"{wire}")
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_s, mark = {}, [t0]
@@ -2964,11 +3598,10 @@ def main() -> int:
         mark[0] = now
 
     smi = phase_device()
-    import torch
-    from repro_torch import SSSP, IncrementalPageRank
-
     build_s = phase_build()
     lap("build")
+    import torch
+    from repro_torch import SSSP, IncrementalPageRank
     sweep_cases = phase_sweep()
     lap("sweep")
     sssp_graph, sssp_data, sssp_build_s = grid_sssp_graph()
@@ -3028,6 +3661,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm = phase_lm()
     lap("lm")
+    mesh = phase_mesh()
+    lap("mesh")
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -3052,7 +3687,7 @@ def main() -> int:
                        kernel_cases=report, kernels=kernels,
                        profiles=profiles, engines=engines, apps=apps,
                        io=io, ft=ft, serve=serve, obs=obs, dist=dist,
-                       lm=lm, phase_s=phase_s), f, indent=1)
+                       lm=lm, mesh=mesh, phase_s=phase_s), f, indent=1)
 
     say("done", seconds=f"{time.perf_counter() - t0:.1f}",
         phase_s=json.dumps(phase_s).replace(" ", ""))

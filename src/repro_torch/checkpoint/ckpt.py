@@ -93,21 +93,25 @@ def _data_fields(obj) -> list[str]:
             if not f.metadata.get("static")]
 
 
-def _flatten_with_names(tree: Tree, path: tuple = ()) -> list[tuple[str, Any]]:
+def _flatten_with_names(tree: Tree, path: tuple = (),
+                        is_leaf=None) -> list[tuple[str, Any]]:
     """``(name, leaf)`` pairs in ``jax.tree_util``'s order and naming (see
     the module docstring); ``None`` holds no leaf."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [("/".join(path), tree)]
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return [pair for name in _data_fields(tree)
                 for pair in _flatten_with_names(getattr(tree, name),
-                                                path + ("." + name,))]
+                                                path + ("." + name,), is_leaf)]
     if isinstance(tree, Mapping):
         return [pair for k in sorted(tree)
-                for pair in _flatten_with_names(tree[k], path + (str(k),))]
+                for pair in _flatten_with_names(tree[k], path + (str(k),),
+                                                is_leaf)]
     if isinstance(tree, (tuple, list)):
         return [pair for i, v in enumerate(tree)
-                for pair in _flatten_with_names(v, path + (str(i),))]
+                for pair in _flatten_with_names(v, path + (str(i),), is_leaf)]
     return [("/".join(path), tree)]
 
 
@@ -222,11 +226,18 @@ def _read_leaf(path: str, rec: dict, codec: str, verify: bool) -> np.ndarray:
 
 
 def load_checkpoint(path: str, tree_like: Tree, device=None,
-                    verify: bool = True) -> tuple[Tree, int]:
+                    verify: bool = True,
+                    shardings: Tree | None = None) -> tuple[Tree, int]:
     """Restore into the structure of ``tree_like``.  Where ``tree_like``
     holds a tensor the restored leaf is a tensor, on ``device`` when one
-    is given and else on that tensor's own device; other leaves come back
-    as numpy arrays.
+    is given and else on that tensor's own device (a DTensor's: its
+    shard's); other leaves come back as numpy arrays.
+
+    ``shardings`` (the structure of ``tree_like``, a
+    ``sharding.util.NamedSharding`` at each leaf to place, e.g. from
+    ``named(specs, mesh)``) restores those leaves as DTensors holding this
+    rank's shard, on any mesh, whatever world size wrote the checkpoint
+    (the reference's elastic restore).
 
     Every leaf is validated against the manifest — path name, shape and
     dtype — so restoring into a mismatched tree (renamed field, transposed
@@ -236,6 +247,11 @@ def load_checkpoint(path: str, tree_like: Tree, device=None,
     manifest = read_manifest(path)
     codec = manifest.get("codec", "zstd")
     named = _flatten_with_names(tree_like)
+    placed = {}
+    if shardings is not None:
+        from repro_torch.sharding.util import NamedSharding
+        placed = dict(_flatten_with_names(
+            shardings, is_leaf=lambda x: isinstance(x, NamedSharding)))
     if device is not None:
         device = resolve_device(device)
     if len(named) != len(manifest["leaves"]):
@@ -257,7 +273,13 @@ def load_checkpoint(path: str, tree_like: Tree, device=None,
                 f"restoring tree")
         arr = _read_leaf(path, rec, codec, verify)
         if isinstance(leaf, torch.Tensor):
-            arr = _tensor(arr, device if device is not None else leaf.device)
+            from repro_torch.sharding.fsdp import local_of
+            dev = device if device is not None else local_of(leaf).device
+            if name in placed:
+                from repro_torch.sharding.util import place
+                arr = place(_tensor(arr, "cpu"), placed[name], dev)
+            else:
+                arr = _tensor(arr, dev)
         out.append(arr)
     return _unflatten(tree_like, iter(out)), manifest["step"]
 

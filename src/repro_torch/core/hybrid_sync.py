@@ -19,6 +19,13 @@ reference's leaves: a scanned unit's parameter ``<stack>.units.<i>.<rest>``
 is row ``i`` of the reference's one stacked leaf ``<stack>.units.<rest>``,
 so the units' deltas are stacked on axis 1 before compression and one int8
 scale covers the leaf's every pod and every unit, as in the reference.
+
+Pods on separate ranks (``global_sync(group=)``, the pod group, one rank
+per pod in pod order): each rank holds its pod's model and residual, one
+all-reduce (max) gives each leaf's largest |value| over every pod (and
+every shard, for DTensor parameters), and one all-gather carries the int8
+codes and scales — 4x fewer bytes than the float32 deltas — before the
+dequantized pod mean, which is then bit for bit the single-process one.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from torch import nn
 from repro_torch.optim.adamw import named
 from repro_torch.optim.compression import (ErrorFeedbackState,
                                            ef_int8_compress,
-                                           ef_int8_decompress)
+                                           ef_int8_decompress, quantize)
 
 __all__ = ["OuterState", "stack_pods", "outer_init", "inner_steps",
            "global_sync"]
@@ -66,25 +73,56 @@ def _reference_leaves(names) -> dict[str, list[str]]:
     return {leaf: [k for _, k in sorted(v)] for leaf, v in groups.items()}
 
 
+def _by_leaf(tree: Mapping):
+    """(stack, unstack): parameter-name trees to the reference's leaves
+    (units stacked on axis 1, after the pod axis) and back."""
+    leaves = _reference_leaves(tree)
+
+    def stack(t):
+        return {leaf: torch.stack([t[k] for k in ks], dim=1)
+                for leaf, ks in leaves.items()}
+
+    def unstack(t):
+        return {k: t[leaf][:, i] for leaf, ks in leaves.items()
+                for i, k in enumerate(ks)}
+    return stack, unstack
+
+
 def _compress_by_leaf(delta_pods: Mapping, ef: ErrorFeedbackState
                       ) -> tuple[dict, ErrorFeedbackState]:
     """``ef_int8_compress`` then ``ef_int8_decompress`` over the reference's
-    leaves (units stacked on axis 1, after the pod axis), returned by
-    parameter name."""
-    leaves = _reference_leaves(delta_pods)
-
-    def stack(tree):
-        return {leaf: torch.stack([tree[k] for k in ks], dim=1)
-                for leaf, ks in leaves.items()}
-
-    def unstack(tree):
-        return {k: tree[leaf][:, i] for leaf, ks in leaves.items()
-                for i, k in enumerate(ks)}
-
+    leaves, returned by parameter name."""
+    stack, unstack = _by_leaf(delta_pods)
     q, scales, new = ef_int8_compress(
         stack(delta_pods), ErrorFeedbackState(residual=stack(ef.residual)))
     return (unstack(ef_int8_decompress(q, scales)),
             ErrorFeedbackState(residual=unstack(new.residual)))
+
+
+def _exchange(delta_pod: Mapping, ef: ErrorFeedbackState, group, max_group,
+              compress: bool) -> tuple[dict, ErrorFeedbackState]:
+    """This rank's pod deltas (a pod axis of 1) -> every pod's (dequantized)
+    deltas in pod order, and this pod's new residuals."""
+    from repro_torch.core.distributed import all_gather_rows
+    from repro_torch.sharding.fsdp import all_reduce
+    if not compress:
+        return dict(zip(delta_pod, all_gather_rows(list(delta_pod.values()),
+                                                   group=group))), ef
+    stack, unstack = _by_leaf(delta_pod)
+    xf = {leaf: x.float() + r for (leaf, x), r in zip(
+        stack(delta_pod).items(), stack(ef.residual).values())}
+    absmax = all_reduce(torch.stack([torch.amax(torch.abs(x))
+                                     for x in xf.values()]), max_group,
+                        torch.distributed.ReduceOp.MAX)
+    q, scales, err = {}, {}, {}
+    for i, (leaf, x) in enumerate(xf.items()):
+        q[leaf], scales[leaf], err[leaf] = quantize(x, absmax[i])
+    codes = all_gather_rows(list(q.values())
+                            + [torch.stack(list(scales.values()))[None]],
+                            group=group)
+    got = dict(zip(q, codes))
+    return (unstack(ef_int8_decompress(got, dict(zip(q, codes[-1][0])))),
+            ErrorFeedbackState(residual=unstack(err)))
 
 
 def stack_pods(tree: Any, n_pods: int):
@@ -99,13 +137,22 @@ def stack_pods(tree: Any, n_pods: int):
 
 
 def outer_init(params: nn.Module | Mapping, n_pods: int) -> OuterState:
+    """``n_pods``: the pods this process holds (1 for a rank of the pod
+    group).  For DTensor parameters the anchor and the momentum are
+    DTensors of the same placements and the residuals this rank's
+    shards."""
+    from repro_torch.sharding.fsdp import like_placed, local_of
     params = {k: p.detach() for k, p in named(params).items()}
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: like_placed(torch.zeros(local_of(p).shape,
+                                        dtype=torch.float32,
+                                        device=local_of(p).device), p)
              for k, p in params.items()}
     return OuterState(
-        anchor={k: p.clone() for k, p in params.items()},
+        anchor={k: like_placed(local_of(p).clone(), p)
+                for k, p in params.items()},
         momentum=zeros,
-        ef=ErrorFeedbackState(residual=stack_pods(zeros, n_pods)))
+        ef=ErrorFeedbackState(residual=stack_pods(
+            {k: local_of(z) for k, z in zeros.items()}, n_pods)))
 
 
 def inner_steps(train_step: Callable, params_pods: Sequence[nn.Module],
@@ -133,41 +180,51 @@ def inner_steps(train_step: Callable, params_pods: Sequence[nn.Module],
 @torch.no_grad()
 def global_sync(params_pods: Sequence[nn.Module], outer: OuterState, *,
                 outer_lr: float = 0.7, outer_momentum: float = 0.9,
-                compress: bool = True,
-                gathered_specs=None) -> tuple[list, OuterState]:
+                compress: bool = True, group=None) -> tuple[list, OuterState]:
     """The global phase: one cross-pod exchange per H inner steps.
 
     Per-pod delta vs. the anchor -> int8 error-feedback compression (one
     scale per reference leaf over all pods and units; the residual rides
     the next exchange) ->
     pod-mean -> outer Nesterov update of the anchor -> written back into
-    every pod's model.  ``gathered_specs`` pins the reference's cross-pod
-    gather to the quantized tensors on a GSPMD mesh; it waits for the
-    sharding slice, so only ``None`` is taken.
+    every pod's model.  ``group``: the pod group, this rank holding one pod
+    (``params_pods`` of one model, ``outer`` from ``outer_init(model, 1)``);
+    the codes cross as int8 (module docstring).  The reference's
+    ``gathered_specs`` pins its GSPMD gather to the codes; here the gather
+    is explicit, so the port has no such argument.
     """
-    if gathered_specs is not None:
-        raise NotImplementedError(
-            "gathered_specs pins a GSPMD gather; it belongs to the sharding "
-            "slice of the port")
-    pods = [named(m) for m in params_pods]
+    from repro_torch.sharding.fsdp import is_sharded, like_placed, local_of
+    pods = [{k: local_of(p) for k, p in named(m).items()}
+            for m in params_pods]
+    anchor0 = {k: local_of(a) for k, a in outer.anchor.items()}
     delta_pods = {k: torch.stack([pod[k].float() for pod in pods])
-                  - a.float()[None] for k, a in outer.anchor.items()}
+                  - a.float()[None] for k, a in anchor0.items()}
 
-    if compress:
+    if group is not None:
+        if len(pods) != 1:
+            raise ValueError(f"a rank of the pod group holds one pod, not "
+                             f"{len(pods)}")
+        # a sharded leaf's largest |value| spans its shards: the world
+        max_group = None if is_sharded(params_pods[0]) else group
+        delta_pods, ef = _exchange(delta_pods, outer.ef, group, max_group,
+                                   compress)
+    elif compress:
         delta_pods, ef = _compress_by_leaf(delta_pods, outer.ef)
     else:
         ef = outer.ef
     delta = {k: torch.mean(d, dim=0) for k, d in delta_pods.items()}
 
     # outer Nesterov (DiLoCo): v <- mu v + delta; anchor += lr (mu v + delta)
-    momentum = {k: outer_momentum * v + delta[k]
+    momentum = {k: outer_momentum * local_of(v) + delta[k]
                 for k, v in outer.momentum.items()}
     anchor = {k: (a.float() + outer_lr * (outer_momentum * momentum[k]
                                           + delta[k])).to(a.dtype)
-              for k, a in outer.anchor.items()}
+              for k, a in anchor0.items()}
 
     for pod in pods:
         for k, p in pod.items():
             p.copy_(anchor[k])
-    return list(params_pods), OuterState(anchor=anchor, momentum=momentum,
-                                         ef=ef)
+    return list(params_pods), OuterState(
+        anchor={k: like_placed(a, outer.anchor[k]) for k, a in anchor.items()},
+        momentum={k: like_placed(v, outer.momentum[k])
+                  for k, v in momentum.items()}, ef=ef)

@@ -9,9 +9,13 @@ of ``repro.models.attention``).
   query chunk.  Chunks are the reference's (``_divisor_chunk``), so the
   fold order, and with it the rounding, is the reference's.
 * **Decode** attends one token to the cache.  Sliding-window caches are
-  ring buffers of size W.  The reference's sequence-sharded decode (an
-  all-gather of partial statistics across a mesh axis) waits for the
-  sharding slice: ``axis_name`` raises.
+  ring buffers of size W.  With ``decode_axis`` (a process group, or the
+  name of a dimension of the ambient mesh) the cache a rank holds is its
+  sequence shard, in group-rank order: rank r holds global rows
+  [r·S, (r+1)·S) of a cache (or ring) of n·S rows.  Only the rank that
+  owns the new token's row writes it; each rank's partial (m, ℓ, o) is
+  merged with one all-gather, as the reference does across its mesh axis.
+  Prefill with ``decode_axis`` writes each rank's own rows.
 * **MLA** caches the compressed latent (c_kv, k_rope) and decodes in
   absorbed form through W_UK / W_UV.
 """
@@ -21,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -42,11 +47,44 @@ def _divisor_chunk(s: int, target: int) -> int:
     return c
 
 
-def _sharded_decode(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "decode over a sequence-sharded cache (axis_name=) belongs to "
-            "the sharding slice of the port; decode on one device")
+def _seq_shard(decode_axis):
+    """(group, n, r): the process group that shards the cache's sequence,
+    its size and this rank's place in it; (None, 1, 0) unsharded."""
+    from repro_torch.sharding.fsdp import resolve_group
+    group = resolve_group(decode_axis)
+    if group is None:
+        return None, 1, 0
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _write_rows(cache, rows, start: int, total: int):
+    """Global rows ``rows`` (from global row 0) into this rank's shard of
+    a cache of ``total`` rows whose shard begins at global row ``start``."""
+    if rows.shape[1] > total:
+        raise ValueError(f"prefill of {rows.shape[1]} positions: the cache "
+                         f"holds {total}")
+    part = rows[:, start:start + cache.shape[1]]
+    if part.shape[1] == 0:
+        return cache
+    return torch.slice_scatter(cache, part, 1, 0, part.shape[1])
+
+
+def _write_slot(cache, row, slot: int, start: int):
+    """The new token's row at global ``slot``, written only by the shard
+    that holds it."""
+    if not start <= slot < start + cache.shape[1]:
+        return cache
+    return torch.slice_scatter(cache, row, 1, slot - start, slot - start + 1)
+
+
+def _merge(m, l, o, group):
+    """Flash partials of every shard merged (the reference's all-gather of
+    o, m, ℓ, in one collective): the unnormalized output and its sum."""
+    from repro_torch.core.distributed import all_gather_rows
+    ms, ls, os_ = all_gather_rows([m[None], l[None], o[None]], group=group)
+    m_g = torch.amax(ms, dim=0)
+    corr = torch.exp(ms - m_g[None])
+    return torch.sum(os_ * corr[..., None], dim=0), torch.sum(ls * corr, dim=0)
 
 
 def _cache_slot(cur_len: int, max_len: int) -> int:
@@ -183,9 +221,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
 
 def decode_attention(q, k, v, kpos, cur_len, *, cap=0.0, window=0,
                      scale=None, axis_name=None, kv_start=None):
-    """q (B,1,H,hd); k,v (B,S,KVH,hd) — the whole cache; kpos (S,) are the
-    global positions of the cache rows."""
-    _sharded_decode(axis_name)
+    """q (B,1,H,hd); k,v (B,S,KVH,hd) — this rank's cache shard with
+    ``axis_name`` (a process group or an ambient mesh dimension's name),
+    else the whole cache; kpos (S,) are the global positions of the cache
+    rows.  Flash partials merge across shards with one small all-gather."""
+    from repro_torch.sharding.fsdp import resolve_group
+    group = resolve_group(axis_name)
     b, _, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -208,6 +249,8 @@ def decode_attention(q, k, v, kpos, cur_len, *, cap=0.0, window=0,
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)
     o = f32_einsum("bkgs,bskd->bkgd", p.to(q.dtype), v)
+    if group is not None:
+        o, l = _merge(m, l, o, group)
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
@@ -246,23 +289,24 @@ def gqa_fwd(p, x, spec, cfg, *, positions, cache=None, cur_len=None,
                             cap=cfg.softcap_attn, kv_start=kv_start)
         new_cache = None
         if cache is not None:
-            cs = cache["k"].shape[1]
+            _, n, r = _seq_shard(decode_axis)
+            local = cache["k"].shape[1]
+            cs = local * n
             if window > 0 and s > cs:
                 # ring buffer: keep the last cs positions, each at slot p % cs
                 k = torch.roll(k[:, -cs:], s % cs, dims=1)
                 v = torch.roll(v[:, -cs:], s % cs, dims=1)
-            new_cache = {
-                "k": torch.slice_scatter(cache["k"], k, 1, 0, k.shape[1]),
-                "v": torch.slice_scatter(cache["v"], v, 1, 0, v.shape[1]),
-            }
+            new_cache = {"k": _write_rows(cache["k"], k, r * local, cs),
+                         "v": _write_rows(cache["v"], v, r * local, cs)}
     else:                                         # decode step
-        _sharded_decode(decode_axis)
+        group, n, r = _seq_shard(decode_axis)
         cur_len = int(cur_len)
-        cs = cache["k"].shape[1]
+        local = cache["k"].shape[1]
+        cs, start = local * n, r * local
         slot = (cur_len % cs) if window > 0 else _cache_slot(cur_len, cs)
-        ck = torch.slice_scatter(cache["k"], k, 1, slot, slot + 1)
-        cv = torch.slice_scatter(cache["v"], v, 1, slot, slot + 1)
-        idx = torch.arange(cs, device=x.device)
+        ck = _write_slot(cache["k"], k, slot, start)
+        cv = _write_slot(cache["v"], v, slot, start)
+        idx = start + torch.arange(local, device=x.device)
         if window > 0:
             # ring buffer: reconstruct global positions of each slot
             wraps = (cur_len + 1 + cs - 1) // cs
@@ -273,7 +317,7 @@ def gqa_fwd(p, x, spec, cfg, *, positions, cache=None, cur_len=None,
             kpos = idx
         y = decode_attention(q, ck, cv, kpos, cur_len + 1,
                              cap=cfg.softcap_attn, window=window,
-                             kv_start=kv_start)
+                             axis_name=group, kv_start=kv_start)
         new_cache = {"k": ck, "v": cv}
 
     y = matmul(y.reshape(b, s, h * hd), p["wo"])
@@ -324,10 +368,12 @@ def mla_fwd(p, x, spec, cfg, *, positions, cache=None, cur_len=None,
     if cache is None or s > 1:                    # train / prefill: expand
         new_cache = None
         if cache is not None:
+            _, n, r = _seq_shard(decode_axis)
+            local = cache["c_kv"].shape[1]
             new_cache = {
-                "c_kv": torch.slice_scatter(cache["c_kv"], c_kv, 1, 0, s),
-                "k_rope": torch.slice_scatter(cache["k_rope"], k_rope, 1, 0, s),
-            }
+                "c_kv": _write_rows(cache["c_kv"], c_kv, r * local, n * local),
+                "k_rope": _write_rows(cache["k_rope"], k_rope, r * local,
+                                      n * local)}
         k, v = _mla_expand(p, c_kv, k_rope, cfg)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         # pad V up to the qk head dim so every block has one head width
@@ -335,15 +381,16 @@ def mla_fwd(p, x, spec, cfg, *, positions, cache=None, cur_len=None,
                             cap=0.0, scale=scale, kv_start=kv_start)
         y = y[..., :vd]
     else:                                         # absorbed decode
-        _sharded_decode(decode_axis)
-        cur_len = _cache_slot(int(cur_len), cache["c_kv"].shape[1])
-        c = torch.slice_scatter(cache["c_kv"], c_kv, 1, cur_len, cur_len + 1)
-        kr = torch.slice_scatter(cache["k_rope"], k_rope, 1, cur_len,
-                                 cur_len + 1)
+        group, n, rk = _seq_shard(decode_axis)
+        local = cache["c_kv"].shape[1]
+        start = rk * local
+        cur_len = _cache_slot(int(cur_len), local * n)
+        c = _write_slot(cache["c_kv"], c_kv, cur_len, start)
+        kr = _write_slot(cache["k_rope"], k_rope, cur_len, start)
         new_cache = {"c_kv": c, "k_rope": kr}
         # fold q through W_UK: (b,1,h,nope) @ (r,h,nope) -> (b,1,h,r)
         q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope, p["w_uk"])
-        kpos = torch.arange(c.shape[1], device=x.device)
+        kpos = start + torch.arange(local, device=x.device)
         s_lat = f32_einsum("bqhr,bsr->bhqs", q_eff, c)
         s_rope = f32_einsum("bqhn,bsn->bhqs", q_rope, kr)
         sc = (s_lat + s_rope) * scale
@@ -355,6 +402,8 @@ def mla_fwd(p, x, spec, cfg, *, positions, cache=None, cur_len=None,
         pr = torch.exp(sc - m[..., None])
         l = torch.sum(pr, dim=-1)
         o_lat = f32_einsum("bhqs,bsr->bhqr", pr.to(x.dtype), c)
+        if group is not None:
+            o_lat, l = _merge(m, l, o_lat, group)
         o_lat = o_lat / torch.clamp(l, min=1e-30)[..., None]
         y = torch.einsum("bhqr,rhn->bqhn", o_lat.to(x.dtype), p["w_uv"])
 

@@ -6,6 +6,12 @@ output is an attention-like masked contraction, and across chunks a small
 (H, P, N) state is carried by a loop (the reference's ``lax.scan``).
 Decode is O(1): one state update per token.
 
+Under a sequence-sharded decode the states are cut over the same group
+(``cache_specs``: ``ssm`` by heads, ``conv`` by channels): each step
+gathers the whole state (:func:`gather_state`), runs the one-device
+update, and keeps this rank's shard (:func:`shard_state`), so every rank
+computes what one device would.
+
 All decays stay in log space until the last moment and are bounded above by
 0 (A < 0), so every exp() is <= 1 — no overflow at any chunk size.
 """
@@ -15,11 +21,17 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Init, dense_init, matmul, norm_fwd
 
-__all__ = ["mamba_init", "mamba_cache_init", "mamba_fwd", "mamba_decode"]
+__all__ = ["mamba_init", "mamba_cache_init", "mamba_fwd", "mamba_decode",
+           "gather_state", "shard_state"]
+
+# the sharded dimension of each state: conv (B, K-1, C) by channels, ssm
+# (B, H, P, N) by heads
+_STATE_DIM = {"conv": 2, "ssm": 1}
 
 
 def _dims(cfg):
@@ -178,3 +190,33 @@ def mamba_decode(p, u: torch.Tensor, cfg, cache):
     y = norm_fwd({"scale": p["norm_scale"]}, y, "rmsnorm", cfg.norm_eps)
     y = matmul(y, p["out_proj"])
     return y, {"conv": conv_state, "ssm": st}
+
+
+def _full_sizes(cfg) -> dict:
+    d_inner, h, n, _ = _dims(cfg)
+    return {"conv": d_inner + 2 * n, "ssm": h}
+
+
+def gather_state(cache, cfg, group) -> dict:
+    """The whole state from this rank's shards (a state the cache specs
+    left whole stays as it is)."""
+    from repro_torch.sharding.fsdp import all_gather_stack
+    full = _full_sizes(cfg)
+    out = {}
+    for k, t in cache.items():
+        d = _STATE_DIM[k]
+        if t.shape[d] != full[k]:
+            t = all_gather_stack(t, group).movedim(0, d).flatten(d, d + 1)
+        out[k] = t
+    return out
+
+
+def shard_state(new, like, group) -> dict:
+    """This rank's shard of each whole state, as ``like`` holds it."""
+    r = dist.get_rank(group)
+    out = {}
+    for k, t in new.items():
+        d, size = _STATE_DIM[k], like[k].shape[_STATE_DIM[k]]
+        out[k] = t.narrow(d, r * size, size).contiguous() \
+            if size != t.shape[d] else t
+    return out

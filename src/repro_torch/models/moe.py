@@ -11,8 +11,12 @@ experts are a fused dense MLP running alongside.
 
 The reference's ``lax.top_k`` puts the lower expert first among equal
 gates; ``torch.topk`` promises no order for ties, so the top k here are
-the first k of a stable descending sort.  The reference's GSPMD hints
-(``maybe_constrain``) have no counterpart on one device and are dropped.
+the first k of a stable descending sort.
+
+Blocks are cut from the whole batch: in a sharded step, where each rank
+holds an equal row-slice of the batch (``sharding.util.split_batch``),
+a rank dispatches the blocks that its rows make, so every token meets the
+capacity it would on one device.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import math
 import torch
 
 from repro_torch.models.layers import Init, _act, dense_init, f32_einsum, matmul
+from repro_torch.sharding.util import batch_shards, maybe_constrain
 
 __all__ = ["moe_init", "moe_fwd", "moe_aux_loss"]
 
@@ -60,13 +65,18 @@ def moe_fwd(p, x: torch.Tensor, cfg, capacity_factor: float = 1.25):
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    nblk = _n_blocks(t)
+    shards = batch_shards()
+    nblk = _n_blocks(t * shards)
+    if nblk % shards:
+        raise ValueError(f"{nblk} dispatch blocks of {t * shards} tokens do "
+                         f"not split over {shards} batch shards")
+    nblk //= shards
     tb = t // nblk
     cap = max(1, int(tb * k / e * capacity_factor))
     act = _act(cfg.act)
     dev = x.device
 
-    xt = x.reshape(nblk, tb, d)
+    xt = maybe_constrain(x.reshape(nblk, tb, d), "data", None, None)
     logits = f32_einsum("ntd,de->nte", xt, p["router"])
     gates = torch.softmax(logits, dim=-1)                    # (nblk, tb, e)
     topg, topi = _top_k(gates, k)                            # (nblk, tb, k)
@@ -94,18 +104,22 @@ def moe_fwd(p, x: torch.Tensor, cfg, capacity_factor: float = 1.25):
     gathered = xt.gather(1, rows(st))
     disp = torch.zeros((nblk, e * cap + 1, d), dtype=x.dtype, device=dev)
     disp = disp.scatter(1, rows(slot), gathered)  # only the overflow slot repeats
-    h = disp[:, :-1].reshape(nblk, e, cap, d)
+    h = maybe_constrain(disp[:, :-1].reshape(nblk, e, cap, d),
+                        "data", "model", None, None)
 
     hi = f32_einsum("necd,edf->necf", h, p["wi"]).to(x.dtype)
     gate, up = hi.chunk(2, dim=-1)
-    ho = f32_einsum("necf,efd->necd", act(gate) * up, p["wo"]).to(x.dtype)
+    ho = maybe_constrain(
+        f32_einsum("necf,efd->necd", act(gate) * up, p["wo"]).to(x.dtype),
+        "data", "model", None, None)
 
     y_slots = torch.cat([ho.reshape(nblk, e * cap, d),
                          torch.zeros((nblk, 1, d), dtype=x.dtype, device=dev)],
                         dim=1)
     contrib = y_slots.gather(1, rows(slot)) * sg[..., None].to(x.dtype)
     y = torch.zeros((nblk, tb, d), dtype=x.dtype, device=dev)
-    y = y.scatter_add(1, rows(st), contrib)
+    y = maybe_constrain(y.scatter_add(1, rows(st), contrib),
+                        "data", None, None)
 
     if cfg.n_shared_experts:
         hs = matmul(xt, p["shared_wi"])

@@ -17,7 +17,7 @@ class ModelAPI(NamedTuple):
     init: Callable          # (gen, cfg, dtype, device) -> model
     forward: Callable       # (model, batch, cfg, remat=) -> logits
     init_cache: Callable    # (cfg, batch_size, max_len, dtype, device) -> cache
-    prefill: Callable       # (model, batch, cache, cfg) -> (logits, cache)
+    prefill: Callable       # (model, batch, cache, cfg, ...) -> (logits, cache)
     decode_step: Callable | None  # (model, token, cache, cur_len, cfg, ...)
 
 

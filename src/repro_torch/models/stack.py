@@ -21,6 +21,8 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (Init, mlp_fwd, mlp_init, norm_fwd,
                                        norm_init)
+from repro_torch.sharding.fsdp import resolve_group
+from repro_torch.sharding.util import maybe_constrain
 
 __all__ = ["layer_init", "layer_cache_init", "layer_fwd", "stack_init",
            "stack_cache_init", "stack_fwd"]
@@ -79,6 +81,9 @@ def layer_cache_init(cfg: ArchConfig, spec: LayerSpec, batch: int,
 def layer_fwd(p, x, cfg: ArchConfig, spec: LayerSpec, *, positions,
               cache=None, cur_len=None, enc=None, decode=False,
               decode_axis=None, kv_start=None):
+    # the residual stream over data on the batch dim (the reference's
+    # sequence-parallel option, model on the seq dim, is not ported)
+    x = maybe_constrain(x, "data", None, None)
     h = norm_fwd(p["norm1"], x, cfg.norm, cfg.norm_eps)
     if spec.mixer == "attn":
         fwd = attn_mod.mla_fwd if spec.attn == "mla" else attn_mod.gqa_fwd
@@ -89,12 +94,16 @@ def layer_fwd(p, x, cfg: ArchConfig, spec: LayerSpec, *, positions,
                          kv_start=kv_start)
         new_cache = None if cache is None else {key: new_sub}
     else:
+        sub = None if cache is None else cache["mamba"]
+        group = resolve_group(decode_axis) if sub is not None else None
+        if group is not None:
+            sub = mamba_mod.gather_state(sub, cfg, group)
         if decode:
-            y, new_sub = mamba_mod.mamba_decode(p["mixer"], h, cfg,
-                                                cache["mamba"])
+            y, new_sub = mamba_mod.mamba_decode(p["mixer"], h, cfg, sub)
         else:
-            sub = None if cache is None else cache["mamba"]
             y, new_sub = mamba_mod.mamba_fwd(p["mixer"], h, cfg, cache=sub)
+        if group is not None:
+            new_sub = mamba_mod.shard_state(new_sub, cache["mamba"], group)
         new_cache = None if cache is None else {"mamba": new_sub}
     x = x + y
 

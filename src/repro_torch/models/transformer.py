@@ -27,6 +27,7 @@ from repro_torch.models.layers import (Init, Params, dense_init, embed_init,
                                        sinusoidal_position_at,
                                        sinusoidal_positions, softcap)
 from repro_torch.models.stack import stack_cache_init, stack_fwd, stack_init
+from repro_torch.sharding.util import maybe_constrain
 
 
 def _init(gen: torch.Generator, dtype, device) -> Init:
@@ -56,13 +57,14 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
 def _logits(p, x, cfg: ArchConfig):
     x = norm_fwd(p["final_norm"], x, cfg.norm, cfg.norm_eps)
     w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    logits = torch.matmul(x.float(), w.float())
+    logits = maybe_constrain(torch.matmul(x.float(), w.float()),
+                             "data", None, "model")
     return softcap(logits, cfg.softcap_final)
 
 
 def lm_forward(p, batch, cfg: ArchConfig, *, remat=True):
     tokens = batch["tokens"]
-    x = p["embed"][tokens]
+    x = maybe_constrain(p["embed"][tokens], "data", None, None)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _ = stack_fwd(p["stack"], x, cfg, cfg.layers(), positions=positions,
                      remat=remat)
@@ -75,7 +77,9 @@ def lm_cache_init(cfg: ArchConfig, batch: int, max_len: int,
                             resolve_device(device))
 
 
-def lm_prefill(p, batch, cache, cfg: ArchConfig):
+def lm_prefill(p, batch, cache, cfg: ArchConfig, decode_axis=None):
+    """``decode_axis``: the cache is this rank's sequence shard over that
+    group (see ``models.attention``)."""
     tokens = batch["tokens"]
     x = p["embed"][tokens]
     start = batch.get("start")          # (B,) left-pad offsets (serving)
@@ -84,7 +88,7 @@ def lm_prefill(p, batch, cache, cfg: ArchConfig):
         positions = torch.clamp(positions[None, :] - start[:, None], min=0)
     x, cache = stack_fwd(p["stack"], x, cfg, cfg.layers(),
                          positions=positions, cache=cache, cur_len=0,
-                         kv_start=start)
+                         decode_axis=decode_axis, kv_start=start)
     return _logits(p, x[:, -1:], cfg), cache
 
 
@@ -182,7 +186,7 @@ def encdec_cache_init(cfg: ArchConfig, batch: int, max_len: int,
                                    dtype=dtype, device=device)}
 
 
-def encdec_prefill(p, batch, cache, cfg: ArchConfig):
+def encdec_prefill(p, batch, cache, cfg: ArchConfig, decode_axis=None):
     enc = encode(p, batch, cfg)
     tokens = batch["tokens"]
     dec_cfg = _with_pattern(cfg, _dec_layers(cfg))
@@ -190,7 +194,8 @@ def encdec_prefill(p, batch, cache, cfg: ArchConfig):
                              _dec_layers(cfg),
                              positions=torch.arange(tokens.shape[1],
                                                     device=tokens.device),
-                             enc=enc, cache=cache["dec"], cur_len=0)
+                             enc=enc, cache=cache["dec"], cur_len=0,
+                             decode_axis=decode_axis)
     return _head(p, x[:, -1:], cfg), {"dec": dec_cache, "enc_out": enc}
 
 
@@ -236,9 +241,10 @@ def vlm_forward(p, batch, cfg: ArchConfig, *, remat=True):
     return _logits(p, x, cfg)
 
 
-def vlm_prefill(p, batch, cache, cfg: ArchConfig):
+def vlm_prefill(p, batch, cache, cfg: ArchConfig, decode_axis=None):
     x = _vlm_embed(p, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     x, cache = stack_fwd(p["stack"], x, cfg, cfg.layers(),
-                         positions=positions, cache=cache, cur_len=0)
+                         positions=positions, cache=cache, cur_len=0,
+                         decode_axis=decode_axis)
     return _logits(p, x[:, -1:], cfg), cache

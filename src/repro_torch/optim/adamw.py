@@ -37,13 +37,26 @@ def named(params: nn.Module | Tensors) -> dict[str, torch.Tensor]:
     return dict(params)
 
 
+def _zeros_like(p: torch.Tensor, dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape; a DTensor's are a DTensor of the same
+    placements holding a zero shard (no collective)."""
+    from repro_torch.sharding.fsdp import like_placed, local_of
+    local = local_of(p)
+    return like_placed(torch.zeros(local.shape, dtype=dtype,
+                                   device=local.device), p)
+
+
 def adamw_init(params: nn.Module | Tensors,
                moment_dtype=torch.float32) -> AdamWState:
+    """Zero moments of each parameter's shape (a sharded parameter's with
+    its placements, as the reference's ``AdamWState(mu=pspecs,
+    nu=pspecs)``)."""
     params = named(params)
-    device = next(iter(params.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
-             for k, p in params.items()}
-    return AdamWState(mu=zeros, nu={k: z.clone() for k, z in zeros.items()},
+    mu = {k: _zeros_like(p, moment_dtype) for k, p in params.items()}
+    nu = {k: _zeros_like(p, moment_dtype) for k, p in params.items()}
+    from repro_torch.sharding.fsdp import local_of
+    device = local_of(next(iter(mu.values()))).device
+    return AdamWState(mu=mu, nu=nu,
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -64,13 +77,15 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    grad_norm: torch.Tensor | None = None,
 ) -> tuple[dict[str, torch.Tensor], AdamWState]:
     """-> (new parameters by name, new state); nothing is written in
-    place."""
+    place.  ``grad_norm``: the clipping norm, where ``grads`` are shards
+    of larger gradients (default: ``global_norm(grads)``)."""
     params = named(params)
     keys = list(params)
     step = state.step + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
 
     c1 = 1.0 - b1 ** step.float()

@@ -17,7 +17,7 @@ from collections.abc import Mapping
 
 import torch
 
-__all__ = ["ErrorFeedbackState", "ef_init", "ef_int8_compress",
+__all__ = ["ErrorFeedbackState", "ef_init", "quantize", "ef_int8_compress",
            "ef_int8_decompress"]
 
 Tensors = Mapping[str, torch.Tensor]
@@ -34,6 +34,15 @@ def ef_init(params: Tensors) -> ErrorFeedbackState:
         for k, p in params.items()})
 
 
+def quantize(xf: torch.Tensor, absmax: torch.Tensor):
+    """-> (q_int8, scale, error) of ``xf`` at the scale ``absmax`` / 127
+    (``absmax``: the largest |value| of the whole leaf, which may span
+    more than ``xf``)."""
+    scale = torch.clamp(absmax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale, xf - q.float() * scale
+
+
 @torch.no_grad()
 def ef_int8_compress(tree: Tensors, ef: ErrorFeedbackState
                      ) -> tuple[dict, dict, ErrorFeedbackState]:
@@ -41,10 +50,7 @@ def ef_int8_compress(tree: Tensors, ef: ErrorFeedbackState
     q, scales, err = {}, {}, {}
     for k, x in tree.items():
         xf = x.float() + ef.residual[k]
-        scale = torch.clamp(torch.amax(torch.abs(xf)), min=1e-12) / 127.0
-        q[k] = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-        scales[k] = scale
-        err[k] = xf - q[k].float() * scale
+        q[k], scales[k], err[k] = quantize(xf, torch.amax(torch.abs(xf)))
     return q, scales, ErrorFeedbackState(residual=err)
 
 
