@@ -206,12 +206,26 @@ Phases, one line each (any failure exits non-zero and prints no result):
               ``global_sync(compress=True, group=)`` rounds (the second
               the residuals alone), bit for bit the one-process sync of
               the same pods, the pods equal after it; wire bytes against
-              the float32 deltas'.  (d) ``python -m
+              the float32 deltas'.  (e) sequence parallelism on
+              (``sharding.util.seq_parallel``: the residual stream between
+              units sharded over model): one sharded train step of (a)'s
+              first batch, its loss and clipping norm against the
+              single-device step 1 and its weights and first moments
+              against (a)'s after its step 1 at (a)'s bounds; on every
+              rank exactly 3 n_units + 2 more collectives than (a)'s step
+              1 (the stream's gathers) and a lower activation peak (the
+              allocator's requested bytes above those before the call);
+              the prefill of (b)'s requests, its logits within 1e-4 of the
+              single-device prefill's; the peaks off and on printed beside
+              the dry run's for the same cell.  (d)
+              ``python -m
               repro_torch.launch.dryrun`` of demo-100m (the four shapes ×
-              both production meshes, the graph and sync cells) on the
-              host on ``meta`` tensors, one process per (shape, mesh) and
-              one for the graph and sync cells, started when the ranks are
-              done (no timed run shares the host with it):
+              both production meshes, the graph and sync cells, and the
+              train cell of (a) on a (2, 2) host mesh in float32 with
+              sequence parallelism off and on) on the host on ``meta``
+              tensors, one process per (shape, mesh) and one for the
+              graph, sync and (2, 2) cells, started when
+              the ranks are done (no timed run shares the host with it):
               per-rank bytes, FLOPs and collective bytes, ``long_500k``
               skipped with the reference's reason.
 
@@ -3014,6 +3028,7 @@ MESH_WORLD = 4
 MESH_DEVICE = "cuda:0"    # every rank on the one card (gloo, staged)
 MESH_DATA, MESH_MODEL = 2, 2
 MESH_TRAIN_STEPS = 3
+MESH_SP_STEPS = 1         # (e): held to (a)'s own step 1
 MESH_DEADLINE_S = 300.0
 # the sharded steps against the single-device steps from the same weights
 # and batches: the data ranks' gradient sum and the clipping norm over the
@@ -3037,9 +3052,9 @@ DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 def start_dryrun():
     """The dry run of ``LM_CFG`` (every shape on both production meshes,
-    the graph cells, the sync cell) on the host on ``meta`` tensors, one
-    process of one thread per (shape, mesh) and one for the graph and sync
-    cells, all started together.  The phase starts them once its ranks are
+    the graph cells, the sync cell, (a)'s cell on the host mesh) on the
+    host on ``meta`` tensors, one process of one thread per (shape, mesh)
+    and one for the rest, all started together.  The phase starts them once its ranks are
     done, so no timed run shares the host with them."""
     import shutil
     out = os.path.join(ROOT, "build", "mesh_dryrun")
@@ -3049,13 +3064,14 @@ def start_dryrun():
             "torch.set_num_threads(1)\n"
             "from repro_torch.launch import dryrun as d\n"
             "out, arch, what = sys.argv[1], sys.argv[2], sys.argv[3:]\n"
-            "if what == ['graph', 'sync']:\n"
+            "if what == ['graph', 'sync', 'host']:\n"
+            "    import chip_smoke as cs\n"
             "    rc = d.main(['--graphhp', '--out', out])\n"
-            "    r = d.run_sync_cell(arch, out)\n"
-            "    sys.exit(rc or r['status'] != 'ok')\n"
+            "    recs = [d.run_sync_cell(arch, out)] + cs.host_cells(out, arch)\n"
+            "    sys.exit(rc or any(r['status'] != 'ok' for r in recs))\n"
             "sys.exit(d.main(['--arch', arch, '--out', out] + what))\n")
     jobs = [["--shape", sh, "--mesh", m] for sh in DRYRUN_SHAPES
-            for m in ("single", "multi")] + [["graph", "sync"]]
+            for m in ("single", "multi")] + [["graph", "sync", "host"]]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     procs, logs = [], []
     for i, job in enumerate(jobs):
@@ -3064,6 +3080,47 @@ def start_dryrun():
             [sys.executable, "-c", code, out, LM_CFG.name, *job], cwd=ROOT,
             stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
     return dict(procs=procs, out=out, logs=logs, t0=time.perf_counter())
+
+
+def host_cells(out, arch):
+    """(a)'s train cell of ``arch`` in the dry run, on the (``MESH_DATA``,
+    ``MESH_MODEL``) host mesh of a fake group in float32, with sequence
+    parallelism off and on (a dry-run process's job): each record written
+    to ``out`` as the production cells' are."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import arg_bytes, build_cell
+    from repro_torch.sharding.util import seq_parallel
+    cfg = dryrun._lm_config(arch)
+    shape = ShapeConfig("mesh_train", LM_TRAIN["seq"], LM_TRAIN["batch"],
+                        "train")
+    dryrun.fake_world(MESH_DATA * MESH_MODEL)
+    mesh = make_host_mesh(MESH_DATA, MESH_MODEL)
+    args = sum(arg_bytes(build_cell(cfg, shape, mesh, False,
+                                    param_dtype=torch.float32)).values())
+    recs = []
+    for sp in (False, True):
+        rec = dict(arch=cfg.name, shape=shape.name,
+                   mesh=f"{MESH_DATA}x{MESH_MODEL}" + ("-sp" if sp else ""))
+        try:
+            with seq_parallel(sp):
+                m = dryrun._probe(cfg, shape, mesh, False, 1, torch.float32)
+            stack = m["stack_temp_peak_bytes"]
+            rec.update(status="ok", memory=dict(
+                argument_bytes=args, peak_bytes=args + m["temp_peak_bytes"],
+                peak_bytes_per_unit=m["peak_bytes_per_unit"],
+                stack_temp_peak_bytes=stack, stack_peak_bytes=args + stack),
+                **{k: m[k] for k in ("flops", "collectives",
+                                     "collective_bytes")})
+        except Exception as e:          # recorded, and failed by the phase
+            rec.update(status="fail", error=f"{type(e).__name__}: {e}")
+        with open(os.path.join(out, f"{cfg.name}__{shape.name}__"
+                               f"{rec['mesh']}.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        recs.append(rec)
+    return recs
 
 
 def stop_dryrun(dry):
@@ -3108,6 +3165,21 @@ def _allocated(device):
             torch.cuda.memory_allocated(device))
 
 
+def _activation_peak(device, fn):
+    """(``fn()``, the most bytes the caching allocator was asked for at
+    once during it above those held before it; None off the card)."""
+    import torch
+    if device.type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, (torch.cuda.memory_stats(device)["requested_bytes.all.peak"]
+                 - before)
+
+
 def mesh_serve(cfg, serve, model, tokens, start, device, mesh=None):
     """The lm phase's serving (``serve``: ``LM_SERVE``), on this rank's
     rows of the batch and its cut of the cache when a mesh is given:
@@ -3143,6 +3215,31 @@ def mesh_serve(cfg, serve, model, tokens, start, device, mesh=None):
     return (torch.stack(out, 1).cpu(), torch.cat(toks, 1).cpu(), ms, axis)
 
 
+def mesh_prefill(cfg, serve, model, tokens, start, device, mesh):
+    """(e) (b)'s prefill alone, on this rank's rows and its cut of the
+    cache, with sequence parallelism off and on: the last position's
+    logits (rows, vocab) and the activation peak of each."""
+    import torch
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.util import seq_parallel, shard_cache
+    api = get_model(cfg)
+    rows, d = serve["batch"] // mesh.size(0), mesh.get_coordinate()[0]
+    batch = {"tokens": tokens[d * rows:(d + 1) * rows],
+             "start": start[d * rows:(d + 1) * rows]}
+    out = {}
+    for sp in (False, True):
+        cache, axis = shard_cache(api.init_cache(
+            cfg, serve["batch"], serve["max_len"], torch.float32, device),
+            mesh)
+        with set_mesh(mesh), seq_parallel(sp), torch.no_grad():
+            (logits, _), peak = _activation_peak(device, lambda: api.prefill(
+                model, batch, cache, cfg, decode_axis=axis))
+        out[sp] = (logits[:, -1].cpu(), peak)
+        del cache
+    return out
+
+
 def _mesh_step(cfg, train):
     """The lm phase's train step (``train``: ``LM_TRAIN``)."""
     from repro_torch.models.registry import get_model
@@ -3154,9 +3251,10 @@ def _mesh_step(cfg, train):
 
 def _mesh_rank(rank, world, group, device, cfg, serve, train, state,
                serve_in, batches, train_want, pod_batches):
-    """One rank of the mesh phase: (b) serving, (a) the sharded train
-    step, (c) the cross-pod sync; what rank 0 (and the other data rank's
-    model-0 rank, for serving) found."""
+    """One rank of the mesh phase: (b) serving, (e) the prefill with
+    sequence parallelism, (a) the sharded train step, then (e) one step
+    with sequence parallelism, (c) the cross-pod sync; what rank 0 (and
+    the other data rank's model-0 rank, for serving) found."""
     import copy
     import torch
     import torch.distributed as dist
@@ -3181,12 +3279,25 @@ def _mesh_rank(rank, world, group, device, cfg, serve, train, state,
     out["serve"] = dict(coord=coord, logits=logits if coord[1] == 0 else None,
                         tokens=toks, ms_per_step=ms, axis=axis,
                         seconds=time.perf_counter() - t)
+    out["prefill"] = mesh_prefill(cfg, serve, model, tokens, start, device,
+                                  mesh)
     del model
     torch.cuda.empty_cache()
 
-    # (a) the sharded train step: parameters and moments by the rules
+    # (a) the sharded train step: parameters and moments by the rules;
+    # (e) its first step again with sequence parallelism on, held to (a)'s
+    # own state after step 1 (not to the single-device step: AdamW's
+    # first step moves each weight by about lr whatever its gradient, so
+    # a near-zero gradient of another sign on two sides reads twice the
+    # move)
     out["train"] = mesh_train_rank(mesh, device, cfg, train, state, batches,
-                                   train_want)
+                                   train_want, keep_first=True)
+    first = out["train"].pop("first")
+    torch.cuda.empty_cache()
+    out["train_sp"] = mesh_train_rank(mesh, device, cfg, train, state,
+                                      batches[:MESH_SP_STEPS], first,
+                                      seq_parallel=True)
+    del first
     torch.cuda.empty_cache()
 
     # (c) two pods on ranks 0 and 1: inner steps on their own data, then
@@ -3236,15 +3347,20 @@ def _mesh_rank(rank, world, group, device, cfg, serve, train, state,
     return out
 
 
-def mesh_train_rank(mesh, device, cfg, train, state, batches, want):
+def mesh_train_rank(mesh, device, cfg, train, state, batches, want,
+                    seq_parallel=False, keep_first=False):
     """(a) on this rank: the parameters and AdamW moments placed by the
-    rules (their bytes read from the allocator), ``MESH_TRAIN_STEPS``
-    sharded steps, then each leaf's largest error of its weights and of
-    its first moment against the same cut of the single-device run's
-    (``want``, from :func:`mesh_train_single`), the largest over the
-    ranks."""
+    rules (their bytes read from the allocator), a sharded step per batch
+    (with sequence parallelism on or off), each one's activation peak,
+    then each leaf's largest error of its weights and of its first moment
+    against the same cut of the single-device run's (``want``, from
+    :func:`mesh_train_single`), the largest over the ranks.  With
+    ``want`` a rank's own state (``local``, from ``keep_first``: its
+    shards and collective counts after step 1), against that, with its
+    move from ``state`` and its largest |mu| for scale."""
     import torch
     import torch.distributed as dist
+    from repro_torch.sharding import util
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.distributed import COMM, reset_comm
     from repro_torch.launch.specs import arg_bytes, build_cell, shard_module
@@ -3276,34 +3392,50 @@ def mesh_train_rank(mesh, device, cfg, train, state, batches, want):
               if m0[0] is not None else {})
     step_fn = _mesh_step(cfg, train)
     reset_comm()
-    losses, norms = [], []
-    _device_sync(device)
-    t = time.perf_counter()
-    for s, batch in enumerate(batches):
-        shard = named_sh(sanitize_specs(batch_spec(batch), batch, mesh),
-                         mesh)
-        model, opt, m = step_fn(model, opt, place_tree(batch, shard, device),
-                                s)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    _device_sync(device)
-    seconds = time.perf_counter() - t
+    losses, norms, peaks, seconds, first = [], [], [], 0.0, None
+    with util.seq_parallel(seq_parallel):
+        for s, batch in enumerate(batches):
+            shard = named_sh(sanitize_specs(batch_spec(batch), batch, mesh),
+                             mesh)
+            placed = place_tree(batch, shard, device)
+            t = time.perf_counter()
+            (model, opt, m), peak = _activation_peak(
+                device, lambda: step_fn(model, opt, placed, s))
+            seconds += time.perf_counter() - t
+            peaks.append(peak)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if keep_first and s == 0:
+                first = dict(local=True, comm=dict(COMM), params={
+                    k: p._local_tensor.detach().clone()
+                    for k, p in model.named_parameters()},
+                    mu={k: local_of(v).clone() for k, v in opt.mu.items()})
     comm = dict(COMM)
     names = [k for k, _ in model.named_parameters()]
-    errs = torch.tensor([[
-        _max_err(p._local_tensor,
-                 local_chunk(want["params"][k], sharding_of(p))),
-        _max_err(local_of(opt.mu[k]),
-                 local_chunk(want["mu"][k], sharding_of(opt.mu[k])))]
-        for k, p in model.named_parameters()], dtype=torch.float64)
-    errs = all_reduce(errs, None, dist.ReduceOp.MAX)
+    local = want.get("local", False)
+
+    def cut(what, k, like):
+        return (want[what][k] if local
+                else local_chunk(want[what][k], sharding_of(like)))
+    rows = []
+    for k, p in model.named_parameters():
+        w, mu = cut("params", k, p), cut("mu", k, opt.mu[k])
+        rows.append([_max_err(p._local_tensor, w),
+                     _max_err(local_of(opt.mu[k]), mu)] + (
+            [_max_err(w, local_chunk(state[k], sharding_of(p))),
+             float(mu.abs().max())] if local else []))
+    errs = all_reduce(torch.tensor(rows, dtype=torch.float64), None,
+                      dist.ReduceOp.MAX)
     del model, opt
+    scale = (dict(moves=dict(zip(names, errs[:, 2].tolist())),
+                  mu_max=dict(zip(names, errs[:, 3].tolist())),
+                  comm_want=want["comm"]) if local else {})
     return dict(bytes=got, block_bytes=blocks,
                 want_bytes={k: want_bytes[k] for k in ("params", "moments")},
-                losses=losses, grad_norms=norms,
+                losses=losses, grad_norms=norms, activation_peaks=peaks,
                 weight_errs=dict(zip(names, errs[:, 0].tolist())),
-                mu_errs=dict(zip(names, errs[:, 1].tolist())),
-                seconds=seconds, comm=comm,
+                mu_errs=dict(zip(names, errs[:, 1].tolist())), **scale,
+                first=first, seconds=seconds, comm=comm,
                 peak_GiB=(torch.cuda.max_memory_allocated(device) / 2**30
                           if device.type == "cuda" else 0.0))
 
@@ -3312,14 +3444,19 @@ def mesh_train_readings(tr, want, state) -> dict:
     """One rank's (a) against the single-device run: each leaf's weight
     error over the leaf's largest move from ``state`` (the initial
     weights), its first-moment error over its largest |mu|, and each
-    step's clipping norm and loss, relative.  The worst leaf of each."""
+    step's clipping norm and loss, relative.  The worst leaf of each.
+    Where the ranks held their weights and moments to a state of their
+    own (``tr["moves"]``: (e)), that state's move and |mu| are the
+    scales; the losses and norms are still the single-device run's."""
     def worst(errs, scale):
         rel = {k: _rel(e, scale[k]) for k, e in errs.items()}
         k = max(rel, key=rel.get)
         return rel[k], k
 
-    moved = {k: _max_err(want["params"][k], state[k]) for k in tr["weight_errs"]}
-    mu_max = {k: float(want["mu"][k].abs().max()) for k in tr["mu_errs"]}
+    moved = tr.get("moves") or {k: _max_err(want["params"][k], state[k])
+                                for k in tr["weight_errs"]}
+    mu_max = tr.get("mu_max") or {k: float(want["mu"][k].abs().max())
+                                  for k in tr["mu_errs"]}
     w_rel, w_leaf = worst(tr["weight_errs"], moved)
     mu_rel, mu_leaf = worst(tr["mu_errs"], mu_max)
     return dict(
@@ -3418,6 +3555,8 @@ def _dryrun_checks(dry):
             status=r["status"],
             argument_bytes_per_rank=mem.get("argument_bytes"),
             peak_bytes_per_rank=mem.get("peak_bytes"),
+            stack_peak_bytes_per_rank=mem.get("stack_peak_bytes"),
+            peak_bytes_per_unit=mem.get("peak_bytes_per_unit"),
             flops_per_rank=r.get("flops"),
             collective_bytes_per_rank=r.get(
                 "collective_bytes", r.get("exchange_bytes")),
@@ -3426,9 +3565,11 @@ def _dryrun_checks(dry):
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch.specs import runnable
     bad = [k for k, r in recs.items() if r["status"] == "fail"]
+    host = f"{MESH_DATA}x{MESH_MODEL}"
     want = {(s, m) for s in DRYRUN_SHAPES for m in ("single", "multi")} | {
         ("hybrid_iteration", "single"), ("hybrid_iteration", "multi"),
-        ("global_sync", "multi")}
+        ("global_sync", "multi"), ("mesh_train", host),
+        ("mesh_train", f"{host}-sp")}
     missing = sorted(want - set(recs))
     skips = [s for s in DRYRUN_SHAPES
              if not runnable(LM_CFG, SHAPES[s])[0]]
@@ -3451,6 +3592,7 @@ def phase_mesh():
     TF32 off; then the dry run, started once the ranks are done."""
     import torch
     from repro_torch.core.distributed import spawn_ranks
+    from repro_torch.models.stack import _unit_specs
     t0 = time.perf_counter()
     device = torch.device(LM_DEVICE)
     cfg = LM_CFG
@@ -3548,6 +3690,70 @@ def phase_mesh():
             staged_bytes=tr["comm"]["staged_bytes"],
             peak_GiB=f"{out['train']['peak_GiB']:.2f}")
 
+        # (e) sequence parallelism: one step, the prefill, the peaks
+        sp = ranks[0]["train_sp"]
+        sp_got = mesh_train_readings(sp, train_want, state)
+        # the stream's gathers a step: a unit's input, again in its
+        # recompute, its output slice's gradient; the stack's output, and
+        # its input slice's gradient
+        n_units = _unit_specs(cfg, cfg.layers())[2]
+        extra_want = MESH_SP_STEPS * (3 * n_units + 2)
+        extra = [r["train_sp"]["comm"]["collectives"]
+                 - r["train_sp"]["comm_want"]["collectives"] for r in ranks]
+        # each rank's step-1 activation peak, off and on (None off the card)
+        step1 = [(r["train"]["activation_peaks"][0],
+                  r["train_sp"]["activation_peaks"][0]) for r in ranks]
+        peak_lower = all(on is not None and on < off for off, on in step1)
+        sp_ok = (mesh_train_ok(sp_got) and peak_lower
+                 and all(e == extra_want for e in extra))
+        pre = sorted((r["serve"]["coord"], r["prefill"]) for r in ranks
+                     if r["serve"]["coord"][1] == 0)
+        pre_err = {on: _max_err(torch.cat([x[on][0] for _, x in pre]),
+                                want_logits[:, 0]) for on in (False, True)}
+        # the largest over the ranks (and steps); 0 off the card
+        peaks = {f"{what}_{'on' if on else 'off'}": max(
+            p or 0 for r in ranks for p in (
+                r[key]["activation_peaks"][:MESH_SP_STEPS] if what == "train"
+                else [r["prefill"][on][1]]))
+            for what in ("train", "prefill") for on in (False, True)
+            for key in ["train_sp" if on else "train"]}
+        # the remat carry a unit shrinks from (B / data, S, D) to
+        # (B / data, S / model, D), float32
+        carry = LM_TRAIN["batch"] // MESH_DATA * LM_TRAIN["seq"] \
+            * cfg.d_model * 4
+        predicted = n_units * (carry - carry // MESH_MODEL)
+        out["seq_parallel"] = dict(
+            steps=MESH_SP_STEPS, losses=sp["losses"],
+            grad_norms=sp["grad_norms"], **sp_got,
+            prefill_max_abs_err=pre_err[True],
+            prefill_off_max_abs_err=pre_err[False],
+            tolerance_prefill=LM_DECODE_ATOL, activation_peak_bytes=peaks,
+            step1_activation_peaks=step1, peak_lower=peak_lower,
+            predicted_peak_drop=predicted,
+            extra_collectives=extra, extra_collectives_want=extra_want,
+            same_as_sharded_step=sp["losses"] == tr["losses"][:MESH_SP_STEPS]
+            and sp["grad_norms"] == tr["grad_norms"][:MESH_SP_STEPS],
+            seconds=max(r["train_sp"]["seconds"] for r in ranks),
+            comm=sp["comm"])
+        say("mesh", part="seq_parallel", mesh=f"{MESH_DATA}x{MESH_MODEL}",
+            steps=MESH_SP_STEPS, loss_rel=f"{sp_got['loss_rel']:.3g}",
+            grad_norm_rel=f"{sp_got['grad_norm_rel']:.3g}",
+            mu_rel=f"{sp_got['mu_rel']:.3g}",
+            weights_rel=f"{sp_got['weights_rel']:.3g}",
+            loss_and_norm_equal_sharded_step=out["seq_parallel"][
+                "same_as_sharded_step"],
+            prefill_max_abs_err=f"{pre_err[True]:.4g}",
+            prefill_off_max_abs_err=f"{pre_err[False]:.4g}",
+            tolerance=LM_DECODE_ATOL,
+            s_per_step="{:.2f}".format(out["seq_parallel"]["seconds"]
+                                       / MESH_SP_STEPS),
+            collectives=sp["comm"]["collectives"],
+            extra_collectives=json.dumps(extra),
+            extra_collectives_want=extra_want,
+            step1_peaks_off_on=json.dumps(step1).replace(" ", ""),
+            peak_drop_predicted=predicted,
+            wire_bytes=sp["comm"]["wire_bytes"])
+
         # (c) the cross-pod sync
         syncs = [r["sync"] for r in ranks[:2]]
         sync_same = all(x["bit_identical"] for x in syncs)
@@ -3563,6 +3769,16 @@ def phase_mesh():
         t = time.perf_counter()
         out["dryrun"] = _dryrun_checks(dry)
         dryrun_s = time.perf_counter() - t
+        cells = out["dryrun"]["cells"]
+        dry_peaks = {on: cells[f"mesh_train:{MESH_DATA}x{MESH_MODEL}{tag}"][
+            "memory"]["stack_temp_peak_bytes"]
+            for on, tag in ((False, ""), (True, "-sp"))}
+        out["seq_parallel"]["dryrun_activation_peak_bytes"] = dry_peaks
+        say("mesh", part="activation_peak", unit="bytes",
+            train_off=peaks["train_off"], dryrun_train_off=dry_peaks[False],
+            train_on=peaks["train_on"], dryrun_train_on=dry_peaks[True],
+            prefill_off=peaks["prefill_off"],
+            prefill_on=peaks["prefill_on"])
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
@@ -3584,6 +3800,11 @@ def phase_mesh():
                               for w in wire)):
         raise AssertionError(f"mesh sync: bit identical {sync_same}, wire "
                              f"{wire}")
+    if not (sp_ok and pre_err[True] <= LM_DECODE_ATOL):
+        raise AssertionError(f"mesh seq_parallel: {sp_got}, prefill err "
+                             f"{pre_err[True]}, extra collectives {extra} "
+                             f"(want {extra_want}), step-1 peaks off/on "
+                             f"{step1}")
     return out
 
 

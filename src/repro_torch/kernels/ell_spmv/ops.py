@@ -1,16 +1,19 @@
-"""Wrapper of the sliced-ELL semiring SpMV kernel (``csrc/ell_spmv.cu``)."""
+"""Wrapper of the sliced-ELL semiring SpMV kernel (``csrc/ell_spmv.cu``)
+and the host COO -> ELL packer."""
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.build import bind
 from repro_torch.kernels.common import (LANE_LAUNCHES, LAUNCHES,
                                         SEMIRING_IDS, SEMIRINGS,
-                                        check_ell_operands, fold_block,
-                                        require_cuda_contiguous)
+                                        check_ell_operands, ell_pack_numpy,
+                                        fold_block, require_cuda_contiguous)
 from repro_torch.kernels.ell_spmv.ref import ell_spmv_ref
 
 _ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5
@@ -50,3 +53,27 @@ def ell_spmv(idx, val, msk, x, *, semiring: str = "add_mul"):
     if lanes > 1:
         LANE_LAUNCHES["ell_spmv"] += 1
     return y
+
+
+def to_ell(edges: np.ndarray, n_rows: int,
+           weights: np.ndarray | None = None,
+           pad_rows: int = 8, pad_slices: int = 128, device=None):
+    """Pack a COO edge list (src, dst) into destination-major ELL tensors
+    on ``device`` (default ``cuda``; raises without a GPU unless
+    ``"cpu"`` is passed).
+
+    Returns (idx (R,K) int32, val (R,K) float32, msk (R,K) bool) with
+    R = n_rows rounded up to ``pad_rows`` and K = the largest in-degree
+    rounded up to a multiple of ``pad_slices``, at least ``pad_slices``;
+    a row's slots hold its in-edges in input order.
+    """
+    device = resolve_device(device)
+    edges = np.asarray(edges)
+    if weights is None:
+        weights = np.ones(len(edges), dtype=np.float32)
+    indeg = np.bincount(edges[:, 1], minlength=n_rows)
+    kmax = int(indeg.max()) if len(indeg) else 1
+    K = max(pad_slices, ((kmax + pad_slices - 1) // pad_slices) * pad_slices)
+    R = ((n_rows + pad_rows - 1) // pad_rows) * pad_rows
+    return tuple(torch.from_numpy(a).to(device) for a in
+                 ell_pack_numpy(edges[:, 0], edges[:, 1], weights, R, K))

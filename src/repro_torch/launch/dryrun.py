@@ -14,10 +14,24 @@ runs twice as probes, as the reference's dry run does: with no repeating
 unit (C0) and with one (C1).  FLOPs and collectives are then C0 + n_units
 × (C1 − C0), exact for a stack of identical units (head layers are in
 C0; a tail after the units is left out, as in the reference).  The
-temporaries' peak is the one-unit probe's.
+temporaries' peak is the one-unit probe's.  A train cell also runs with
+two units (C2): C2 − C1 is what each unit adds to the peak
+(``peak_bytes_per_unit``: its remat carry, and the unit's gradients where
+the peak is the update's), and ``stack_peak_bytes`` the whole stack's
+peak, C1's plus n_units − 1 such units.  Prefill and decode run without
+grad, keep no unit's activations and are not probed so.
+
+``--seq-parallel`` turns on sequence parallelism (``sharding.util.
+seq_parallel``) for the sweep and tags the records ``-sp`` unless
+``--variant`` names another tag: the residual stream between units, and
+with it each unit's remat carry, is then sharded over ``model``.  The
+stack shards only around its units, so the 0-unit probe has none of the
+stretch's own collectives: with the switch on, every cell runs C2
+in place of C0 and extrapolates C1 + (n_units − 1) × (C2 − C1).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch X]
-        [--shape Y] [--mesh single|multi|both] [--out build/dryrun]
+        [--shape Y] [--mesh single|multi|both] [--seq-parallel]
+        [--out build/dryrun]
 
 Each cell writes its JSON as it ends, so a long sweep is resumable
 (--skip-done).  Failures are recorded: they are bugs in the system.  The
@@ -41,8 +55,9 @@ from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
                                       get_config)
 from repro_torch.launch.mesh import (HBM_BW, NVLINK_BW, PEAK_FLOPS_F32,
                                      make_production_mesh, set_mesh)
-from repro_torch.launch.specs import (arg_bytes, build_cell, place_args,
-                                      runnable)
+from repro_torch.launch.specs import (BF16, arg_bytes, build_cell,
+                                      place_args, runnable)
+from repro_torch.sharding.util import seq_axis, seq_parallel
 
 __all__ = ["ARCHS", "run_cell", "run_graphhp_cell", "run_sync_cell",
            "fake_world", "main"]
@@ -129,22 +144,37 @@ def _n_units(cfg) -> int:
     return (cfg.n_layers - (cfg.first_k_dense or 0)) // len(cfg.pattern)
 
 
-def _probe(cfg, shape, mesh, multi_pod, mb) -> dict:
-    """The cell's FLOPs and collectives from its two probes."""
-    c0, c1 = (_run(build_cell(_probe_cfg(cfg, k), shape, mesh, multi_pod,
-                              microbatches=mb), mesh) for k in (0, 1))
+def _probe(cfg, shape, mesh, multi_pod, mb, param_dtype=BF16) -> dict:
+    """The cell's FLOPs and collectives from its probes, and what a unit
+    adds to a train cell's peak.  With sequence parallelism on, the stack
+    shards its stream only around units, so the 0-unit probe lacks the
+    stretch's own collectives: the cell then extrapolates from the 1- and
+    2-unit probes."""
     n = _n_units(cfg)
-    out = {k: c0[k] + n * (c1[k] - c0[k])
+    a = 1 if seq_axis() is not None and n else 0       # the base probe
+    cs = {k: _run(build_cell(_probe_cfg(cfg, k), shape, mesh, multi_pod,
+                             microbatches=mb, param_dtype=param_dtype), mesh)
+          for k in range(a, 3 if shape.kind == "train" else a + 2)}
+    base, unit = cs[a], cs[a + 1]
+    out = {k: base[k] + (n - a) * (unit[k] - base[k])
            for k in ("flops", "collectives", "collective_bytes")}
-    out["collective_calls"] = {k: c0["collective_calls"].get(k, 0) + n * (
-        v - c0["collective_calls"].get(k, 0))
-        for k, v in c1["collective_calls"].items()}
-    out["extrapolation"] = {"n_units": n,
-                            "unit_flops": c1["flops"] - c0["flops"],
-                            "unit_coll_bytes": c1["collective_bytes"]
-                            - c0["collective_bytes"]}
+    out["collective_calls"] = {k: base["collective_calls"].get(k, 0)
+                               + (n - a) * (v - base["collective_calls"].get(
+                                   k, 0))
+                               for k, v in unit["collective_calls"].items()}
+    out["extrapolation"] = {"n_units": n, "from_probes": [a, a + 1],
+                            "unit_flops": unit["flops"] - base["flops"],
+                            "unit_coll_bytes": unit["collective_bytes"]
+                            - base["collective_bytes"]}
+    c1 = cs[1]
     out["temp_peak_bytes"] = c1["temp_peak_bytes"]
     out["temp_peak_note"] = c1["temp_peak_note"]
+    out["peak_bytes_per_unit"] = out["stack_temp_peak_bytes"] = None
+    peaks = [cs[k]["temp_peak_bytes"] for k in (1, 2) if k in cs]
+    if shape.kind == "train" and None not in peaks:
+        out["peak_bytes_per_unit"] = peaks[1] - peaks[0]
+        out["stack_temp_peak_bytes"] = peaks[0] + (n - 1) * (peaks[1]
+                                                             - peaks[0])
     return out
 
 
@@ -187,6 +217,7 @@ def run_cell(arch, shape_name, multi_pod: bool, out_dir: str,
                                     microbatches=mb))
         m = _probe(cfg, shape, mesh, multi_pod, mb)
         total = sum(args.values())
+        stack = m["stack_temp_peak_bytes"]
         rec.update(
             status="ok", elapsed_s=round(time.time() - t0, 2),
             devices=int(mesh.size()),
@@ -195,7 +226,11 @@ def run_cell(arch, shape_name, multi_pod: bool, out_dir: str,
                                     else total + m["temp_peak_bytes"]),
                         peak_note=m["temp_peak_note"] or (
                             "arguments plus MemTracker's peak on meta of "
-                            "the one-unit probe")),
+                            "the one-unit probe"),
+                        peak_bytes_per_unit=m["peak_bytes_per_unit"],
+                        stack_temp_peak_bytes=stack,
+                        stack_peak_bytes=(None if stack is None
+                                          else total + stack)),
             extrapolation=m["extrapolation"],
             flops=m["flops"], collectives=m["collectives"],
             collective_calls=m["collective_calls"],
@@ -204,6 +239,7 @@ def run_cell(arch, shape_name, multi_pod: bool, out_dir: str,
         if verbose:
             print(f"[ok] {name} {shape_name} {mesh_tag}: "
                   f"args/rank={total / 2**30:.3f}GiB "
+                  f"peak/unit={m['peak_bytes_per_unit']} "
                   f"flops/rank={m['flops']:.3e} "
                   f"coll={m['collective_bytes']:.3e}B "
                   f"dom={rec['roofline']['dominant']} "
@@ -340,8 +376,9 @@ def main(argv=None) -> int:
     ap.add_argument("--graphhp", action="store_true",
                     help="also dry-run the paper's graph engine")
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="not supported: the port keeps activations as "
-                         "local tensors, so no layout would change")
+                    help="shard the residual stream between units over "
+                         "model (sequence parallelism); tags the records "
+                         "'sp' unless --variant is given")
     ap.add_argument("--variant", default="",
                     help="tag appended to the mesh name in output JSONs")
     ap.add_argument("--microbatches", type=int, default=1,
@@ -350,37 +387,37 @@ def main(argv=None) -> int:
                     help="quantize graph-engine exchange payloads to bf16")
     args = ap.parse_args(argv)
 
-    if args.seq_parallel:
-        ap.error("--seq-parallel is not supported: the port's activations "
-                 "are local tensors, which no sharding constraint moves")
+    if args.seq_parallel and not args.variant:
+        args.variant = "sp"
+    with seq_parallel(args.seq_parallel):
+        archs = [args.arch] if args.arch else ARCHS
+        shapes = [args.shape] if args.shape else list(SHAPES)
+        meshes = {"single": [False], "multi": [True],
+                  "both": [False, True]}[args.mesh]
 
-    archs = [args.arch] if args.arch else ARCHS
-    shapes = [args.shape] if args.shape else list(SHAPES)
-    meshes = {"single": [False], "multi": [True],
-              "both": [False, True]}[args.mesh]
-
-    n_fail = 0
-    for multi in meshes:
-        tag = "multi" if multi else "single"
-        for arch in archs:
-            for shape in shapes:
-                vtag = tag + (f"-{args.variant}" if args.variant else "")
-                fn = os.path.join(args.out, f"{arch}__{shape}__{vtag}.json")
-                if args.skip_done and os.path.exists(fn):
-                    with open(fn) as f:
-                        if json.load(f).get("status") in ("ok", "skip"):
-                            continue
-                rec = run_cell(arch, shape, multi, args.out,
-                               variant=args.variant,
-                               microbatches=args.microbatches)
+        n_fail = 0
+        for multi in meshes:
+            tag = "multi" if multi else "single"
+            for arch in archs:
+                for shape in shapes:
+                    vtag = tag + (f"-{args.variant}" if args.variant else "")
+                    fn = os.path.join(args.out,
+                                      f"{arch}__{shape}__{vtag}.json")
+                    if args.skip_done and os.path.exists(fn):
+                        with open(fn) as f:
+                            if json.load(f).get("status") in ("ok", "skip"):
+                                continue
+                    rec = run_cell(arch, shape, multi, args.out,
+                                   variant=args.variant,
+                                   microbatches=args.microbatches)
+                    n_fail += rec["status"] == "fail"
+            if args.graphhp:
+                rec = run_graphhp_cell(multi, args.out,
+                                       wire_bf16=args.graphhp_wire_bf16,
+                                       variant=args.variant)
                 n_fail += rec["status"] == "fail"
-        if args.graphhp:
-            rec = run_graphhp_cell(multi, args.out,
-                                   wire_bf16=args.graphhp_wire_bf16,
-                                   variant=args.variant)
-            n_fail += rec["status"] == "fail"
-    print(f"dry-run complete; failures: {n_fail}", flush=True)
-    return 1 if n_fail else 0
+        print(f"dry-run complete; failures: {n_fail}", flush=True)
+        return 1 if n_fail else 0
 
 
 if __name__ == "__main__":

@@ -164,8 +164,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
     dev = q.device
 
     qr = q.reshape(b, nq, cq, kvh, g, hd)
+    dtype = q.dtype
 
-    def q_chunk(qi, qb):
+    # q, k and v reach a chunk as arguments, never closed over: inside the
+    # stack's per-unit checkpoint, which drops every tensor saved in its
+    # forward (the chunks' checkpointed inputs too), a tensor that the
+    # chunk's function holds stays alive until the backward, and every
+    # unit's remat carry would hold its q, k and v beside its input
+    def q_chunk(qi, qb, k, v):
         qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
 
         if window > 0:
@@ -181,9 +187,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
             m = torch.amax(s, dim=-1)
             p = torch.exp(s - m[..., None])
             l = torch.sum(p, dim=-1)
-            acc = f32_einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), vb)
+            acc = f32_einsum("bkgqs,bskd->bqkgd", p.to(dtype), vb)
             out = acc / torch.clamp(l.permute(0, 3, 1, 2), min=1e-30)[..., None]
-            return out.to(q.dtype)
+            return out.to(dtype)
 
         m = torch.full((b, kvh, g, cq), NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -201,17 +207,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + torch.sum(p, dim=-1)
-            pv = f32_einsum("bkgqs,bskd->bkgqd", p.to(q.dtype), vb)
+            pv = f32_einsum("bkgqs,bskd->bkgqd", p.to(dtype), vb)
             acc = acc * corr[..., None] + pv
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]    # (b,kvh,g,cq,hd)
-        return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+        return out.permute(0, 3, 1, 2, 4).to(dtype)
 
     # recompute each q chunk in the backward, as the reference does: without
     # it the backward keeps every score block, the full S×S matrix
     remat = nq > 1 and torch.is_grad_enabled()
-    outs = [checkpoint(q_chunk, qi, qr[:, qi], use_reentrant=False) if remat
-            else q_chunk(qi, qr[:, qi]) for qi in range(nq)]
+    outs = [checkpoint(q_chunk, qi, qr[:, qi], k, v, use_reentrant=False)
+            if remat else q_chunk(qi, qr[:, qi], k, v) for qi in range(nq)]
     return torch.stack(outs, dim=1).reshape(b, sq, h, hd)
 
 

@@ -9,6 +9,18 @@ reference's ``stack.units.layer_<j>[i]``), run in a loop, and
 ``remat=True`` recomputes each unit in the backward through
 ``torch.utils.checkpoint``.  Caches follow the same layout: a list of
 per-unit caches where the reference stacks them.
+
+Sequence parallelism (``sharding.util.seq_axis``, on a mesh whose
+``model`` dimension has more than one rank): the reference constrains the
+residual stream to ``("data", "model", None)`` and GSPMD lays it out; the
+port's activations are local tensors, so the stack does it.  Between
+units each ``model`` rank holds its slice of the sequence (so each unit's
+remat carry is that slice); a unit gathers the whole sequence, runs as
+without, and keeps its own slice of its output; the stack gathers the
+whole again after the last unit.  Head and tail layers, which are not
+rematerialized, run on the whole stream, and decode (one token) is not
+sharded.  A sequence the ranks do not divide is zero-padded on the last
+slices and cut back to its length before any layer sees it.
 """
 
 from __future__ import annotations
@@ -21,7 +33,8 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (Init, mlp_fwd, mlp_init, norm_fwd,
                                        norm_init)
-from repro_torch.sharding.fsdp import resolve_group
+from repro_torch.sharding.fsdp import (gather_seq, resolve_group, seq_group,
+                                       shard_seq)
 from repro_torch.sharding.util import maybe_constrain
 
 __all__ = ["layer_init", "layer_cache_init", "layer_fwd", "stack_init",
@@ -81,8 +94,8 @@ def layer_cache_init(cfg: ArchConfig, spec: LayerSpec, batch: int,
 def layer_fwd(p, x, cfg: ArchConfig, spec: LayerSpec, *, positions,
               cache=None, cur_len=None, enc=None, decode=False,
               decode_axis=None, kv_start=None):
-    # the residual stream over data on the batch dim (the reference's
-    # sequence-parallel option, model on the seq dim, is not ported)
+    # the residual stream over data on the batch dim; with sequence
+    # parallelism on, stack_fwd hands a unit's layers the whole sequence
     x = maybe_constrain(x, "data", None, None)
     h = norm_fwd(p["norm1"], x, cfg.norm, cfg.norm_eps)
     if spec.mixer == "attn":
@@ -177,18 +190,29 @@ def stack_fwd(p, x, cfg: ArchConfig, layers, *, positions, cache=None,
         if new_cache is not None:
             new_cache["head"].append(nc)
 
-    if n_units:
-        new_units = []
-        for u in range(n_units):
-            unit_c = None if cache is None else cache["units"][u]
-            if remat and x.requires_grad:
-                x, nc = checkpoint(unit_fwd, x, p["units"][u], unit_c,
-                                   use_reentrant=False)
-            else:
-                x, nc = unit_fwd(x, p["units"][u], unit_c)
-            new_units.append(nc)
-        if new_cache is not None:
-            new_cache["units"] = new_units
+    # with sequence parallelism the units' stretch of the stream is
+    # sharded over model (a stack of no units has nothing to shard)
+    group = None if decode or not n_units else seq_group()
+    run, seq = unit_fwd, x.shape[1]
+    if group is not None:
+        x = shard_seq(x, group)
+
+        def run(x, unit_p, unit_c):
+            y, nc = unit_fwd(gather_seq(x, group, seq), unit_p, unit_c)
+            return shard_seq(y, group), nc
+    new_units = []
+    for u in range(n_units):
+        unit_c = None if cache is None else cache["units"][u]
+        if remat and x.requires_grad:
+            x, nc = checkpoint(run, x, p["units"][u], unit_c,
+                               use_reentrant=False)
+        else:
+            x, nc = run(x, p["units"][u], unit_c)
+        new_units.append(nc)
+    if group is not None:
+        x = gather_seq(x, group, seq)
+    if new_cache is not None and n_units:
+        new_cache["units"] = new_units
 
     for i, spec in enumerate(tail):
         x, nc = layer_fwd(p["tail"][i], x, cfg, spec,

@@ -38,7 +38,11 @@ def quantize(xf: torch.Tensor, absmax: torch.Tensor):
     """-> (q_int8, scale, error) of ``xf`` at the scale ``absmax`` / 127
     (``absmax``: the largest |value| of the whole leaf, which may span
     more than ``xf``)."""
-    scale = torch.clamp(absmax, min=1e-12) / 127.0
+    # the divisor is a tensor on the operand's device: PyTorch's CUDA
+    # division by a Python number (a CPU scalar) multiplies by its float32
+    # reciprocal instead, which rounds apart from a division (and from the
+    # host's and the reference's) for about one value in 20
+    scale = torch.clamp(absmax, min=1e-12) / torch.full_like(absmax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale, xf - q.float() * scale
 

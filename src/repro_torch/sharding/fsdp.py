@@ -11,6 +11,13 @@ and again for the recompute, never held across units.  Gradients flow back
 through the gather: the whole gradient is summed over the ranks that split
 the batch (the ``data`` axis, inside a pod) and each rank keeps its shard.
 
+The residual stream's sequence shards (sequence parallelism,
+``sharding.util.seq_axis``) move through :func:`shard_seq` and
+:func:`gather_seq`: the ``model`` ranks compute the same values, so a
+rank keeps its slice of the sequence between units and gathers the whole
+before each; the backward of a gather is a slice (each rank's gradient of
+the whole is already the whole gradient), that of a slice a gather.
+
 Every collective here goes through ``repro_torch.core.distributed``'s
 byte path, which stages CUDA tensors through pinned host memory when the
 group is gloo (the smoke's ranks share one card; NCCL refuses two ranks on
@@ -26,11 +33,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.sharding.util import (NamedSharding, current_mesh,
-                                       local_chunk)
+                                       local_chunk, seq_axis)
 
 __all__ = ["resolve_group", "all_gather_stack", "all_reduce", "gather_full",
-           "data_group", "unsharded", "is_sharded", "sharding_of",
-           "local_of", "like_placed"]
+           "data_group", "seq_group", "shard_seq", "gather_seq", "unsharded",
+           "is_sharded", "sharding_of", "local_of", "like_placed"]
 
 
 def resolve_group(axis):
@@ -89,6 +96,87 @@ def data_group(mesh):
     if "data" not in names or mesh.size(names.index("data")) == 1:
         return None
     return mesh.get_group("data")
+
+
+def seq_group():
+    """The group the residual stream's sequence is sharded over: the
+    ambient mesh's ``seq_axis()`` dimension when sequence parallelism is
+    on and that dimension has more than one rank; else None (the
+    reference's constraint is the identity without such a mesh)."""
+    axis, mesh = seq_axis(), current_mesh()
+    names = () if mesh is None else (mesh.mesh_dim_names or ())
+    if axis is None or axis not in names or \
+            mesh.size(names.index(axis)) == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with zero rows appended on dim 1 up to a multiple of ``n``."""
+    pad = -t.shape[1] % n
+    if not pad:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], 1)
+
+
+def _slice_seq(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's slice of ``t``'s dim 1, zero-padded to a multiple of
+    the group's size: a copy, so the whole tensor is not kept alive."""
+    n = dist.get_world_size(group)
+    t = _pad_seq(t, n)
+    size = t.shape[1] // n
+    return t.narrow(1, dist.get_rank(group) * size, size).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _gather_seq(local: torch.Tensor, group, seq: int) -> torch.Tensor:
+    """Every rank's slice side by side on dim 1 (one all-gather), the
+    padding cut off at ``seq``."""
+    whole = all_gather_stack(local, group).movedim(0, 1).flatten(1, 2)
+    return whole.narrow(1, 0, seq).contiguous()
+
+
+class _ShardSeq(torch.autograd.Function):
+    """Forward: this rank's slice of the sequence.  Backward: the whole
+    gradient from every rank's slice (one all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.seq = group, x.shape[1]
+        return _slice_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_seq(grad.contiguous(), ctx.group, ctx.seq), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Forward: the whole sequence from every rank's slice (one
+    all-gather).  Backward: this rank's slice of the gradient, not a sum
+    over the ranks: they repeat the same compute on the gathered stream,
+    so each rank's gradient of it is already the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, local, group, seq):
+        ctx.group = group
+        return _gather_seq(local, group, seq)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _slice_seq(grad, ctx.group), None, None
+
+
+def shard_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, S, ...) -> this rank's (B, ceil(S / n), ...) slice of the
+    sequence over the ``n`` ranks of ``group`` (the last slices padded
+    with zeros when ``n`` does not divide S)."""
+    return _ShardSeq.apply(x, group)
+
+
+def gather_seq(local: torch.Tensor, group, seq: int) -> torch.Tensor:
+    """The inverse of :func:`shard_seq`: the whole (B, ``seq``, ...)
+    stream from every rank's slice, the padding dropped."""
+    return _GatherSeq.apply(local, group, seq)
 
 
 class _Gather(torch.autograd.Function):

@@ -11,7 +11,10 @@ own, ``repro_torch.sharding.fsdp``).
 
 The ambient mesh (``repro_torch.launch.mesh.set_mesh``) is what
 ``maybe_constrain`` reads; the batch split (``split_batch``) is how many
-ranks a step's batch is spread over, which MoE's block dispatch reads.
+ranks a step's batch is spread over, which MoE's block dispatch reads;
+the sequence-parallel switch (``seq_parallel`` / ``set_seq_parallel``)
+is what ``seq_axis`` reads, and with it the model stack shards its
+residual stream over ``model`` between units (``models.stack``).
 """
 
 from __future__ import annotations
@@ -30,8 +33,9 @@ from repro_torch.sharding.rules import (P, PartitionSpec, _map_leaves,
 __all__ = ["sanitize_specs", "NamedSharding", "named", "placements_for",
            "axis_sizes", "mesh_coords", "local_chunk", "place", "place_tree",
            "local_tree", "local_nbytes", "maybe_constrain",
-           "current_mesh", "use_mesh",
-           "split_batch", "batch_shards", "decode_layout", "shard_cache"]
+           "current_mesh", "use_mesh", "set_seq_parallel", "seq_parallel",
+           "seq_axis", "split_batch", "batch_shards", "decode_layout",
+           "shard_cache"]
 
 Tree = Any
 
@@ -265,6 +269,40 @@ def maybe_constrain(x, *parts):
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(mesh, placements)
+
+
+# Sequence parallelism (Korthikanti et al.): when on, the residual stream
+# between units is sharded over ``model`` on the sequence dim as well as
+# over ``data`` on the batch dim, so the per-unit remat carry shrinks by
+# the ``model`` axis's size.  The reference's GSPMD does it from a
+# constraint; the port's stack does it with its own collectives
+# (``sharding.fsdp.shard_seq`` / ``gather_seq``).
+_SEQ_PARALLEL = False
+
+
+def set_seq_parallel(enabled: bool) -> None:
+    """Turn sequence parallelism on or off for the process (the
+    reference's switch); :func:`seq_parallel` sets it for a block."""
+    global _SEQ_PARALLEL
+    _SEQ_PARALLEL = bool(enabled)
+
+
+@contextlib.contextmanager
+def seq_parallel(enabled: bool = True):
+    """Sequence parallelism on (or off) inside the block, and the previous
+    setting restored after it."""
+    prev = _SEQ_PARALLEL
+    set_seq_parallel(enabled)
+    try:
+        yield
+    finally:
+        set_seq_parallel(prev)
+
+
+def seq_axis():
+    """The mesh axis the residual stream's sequence dim is sharded over:
+    ``"model"`` with sequence parallelism on, else None."""
+    return "model" if _SEQ_PARALLEL else None
 
 
 _BATCH_SHARDS = 1

@@ -21,6 +21,7 @@ parameters themselves and the norm is ``global_norm``'s.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -103,7 +104,7 @@ def make_train_step(cfg: ArchConfig, api: ModelAPI, *,
 
     def train_step(model, opt: AdamWState, batch, step):
         from repro_torch.sharding import fsdp
-        from repro_torch.sharding.util import split_batch
+        from repro_torch.sharding.util import split_batch, use_mesh
         params = named(model)
         group, n, mesh = None, 1, None
         if fsdp.is_sharded(model):
@@ -116,7 +117,10 @@ def make_train_step(cfg: ArchConfig, api: ModelAPI, *,
         else:
             leaves, view = params, model
         loss_sum, g_sum = 0.0, None
-        with split_batch(n):
+        # the params' mesh is the ambient one inside the step, where the
+        # stack reads its sequence-parallel group
+        with split_batch(n), (contextlib.nullcontext() if mesh is None
+                              else use_mesh(mesh)):
             for mb in split(batch):
                 nll = token_nll(_logits(cfg, api, view, mb), mb["labels"])
                 mask = mb.get("mask")

@@ -30,11 +30,12 @@ import pytest
 import torch
 
 from repro.kernels.ell_spmv import ell_spmv as jax_ell_spmv
+from repro.kernels.ell_spmv import to_ell as jax_to_ell
 from repro.kernels.min_step import fused_min_step as jax_min_step
 from repro.kernels.pr_step import fused_pr_step as jax_pr_step
 
 from repro_torch.kernels.common import LAUNCHES, SEMIRINGS
-from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
+from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref, to_ell
 from repro_torch.kernels.min_step import fused_min_step, fused_min_step_ref
 from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
 
@@ -267,6 +268,55 @@ def test_pr_step_special_values_match_pallas(case, k, lanes):
     same = _bits_equal_nan if case == "unsent_special_val" else _bits_equal
     for w, g in zip(want, got):
         same(w, g)
+
+
+def _edge_list(seed, n, e, hub):
+    """``e`` random (src, dst) pairs over ``n`` vertices (duplicates kept),
+    plus ``hub`` extra edges into vertex 1."""
+    rng = np.random.RandomState(seed)
+    edges = rng.randint(0, n, size=(e, 2))
+    extra = np.stack([rng.randint(0, n, size=hub), np.ones(hub, int)], 1)
+    edges = np.concatenate([edges, extra]).astype(np.int64)
+    w = rng.uniform(-1.0, 2.0, size=len(edges)).astype(np.float32)
+    return edges, w
+
+
+# (n_rows, edges, hub in-degree, pad_rows, pad_slices): a ragged row count,
+# an in-degree above pad_slices, a K of several slice widths, no edges
+TO_ELL_CASES = ((37, 200, 0, 8, 128), (37, 200, 150, 8, 128),
+                (61, 400, 70, 16, 32), (5, 0, 0, 8, 128))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", range(len(TO_ELL_CASES)))
+def test_to_ell_matches_reference(case, weighted):
+    """The port's COO -> ELL packer against the reference's, array for
+    array (dtype, shape, bits), then ``ell_spmv`` over each package's own
+    packing, bit for bit (the parity contract)."""
+    n, e, hub, pad_rows, pad_slices = TO_ELL_CASES[case]
+    edges, w = _edge_list(case, n, e, hub)
+    kw = dict(weights=w if weighted else None, pad_rows=pad_rows,
+              pad_slices=pad_slices)
+    want = jax_to_ell(edges, n, **kw)
+    got = to_ell(edges, n, device="cpu", **kw)
+    rows = -(-n // pad_rows) * pad_rows
+    assert got[0].shape[0] == rows and got[0].shape[1] % pad_slices == 0
+    assert got[0].shape[1] >= max(pad_slices, hub)
+    for a, b in zip(want, got):
+        _bits_equal(a, b)
+    x = np.random.RandomState(case).uniform(size=rows).astype(np.float32)
+    for semiring in ("add_mul", "min_add"):
+        _bits_equal(jax_ell_spmv(*want, x, semiring=semiring),
+                    ell_spmv(*got, torch.from_numpy(x), semiring=semiring))
+
+
+def test_to_ell_needs_a_device_without_a_gpu():
+    """The default device is ``cuda``: without a GPU the packer raises
+    rather than fall back to the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_ell(np.zeros((1, 2), np.int64), 4)
 
 
 def test_plain_versions_do_not_count_launches():

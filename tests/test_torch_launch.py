@@ -12,6 +12,9 @@ size (256 and 512 ranks) on ``meta`` tensors, and the mesh module.
   part of a block (ROADMAP Queue 3).
 * The CLI, the graph cell and the sync cell (int8 codes cross the pod
   group: a quarter of the float32 deltas' bytes, plus the scales).
+* Sequence parallelism: the residual stream's gathers and a train
+  cell's remat carry a unit; ``--seq-parallel``'s ``sp`` tag; a cell on
+  a host mesh.
 """
 
 import dataclasses
@@ -119,18 +122,82 @@ def test_cli_graph_and_sync_cells(fake, tmp_path):
         + (2 + 1) * 4 * leaves
 
 
-def test_cli_refuses_seq_parallel(tmp_path, capsys):
-    """The port's activations are local tensors, which no sharding
-    constraint moves: a sequence-parallel run would write records that
-    claim a layout the step does not have, so the flag is refused."""
-    out = tmp_path / "d"
-    with pytest.raises(SystemExit) as exc:
-        dryrun.main(["--arch", "dense-gqa-smoke", "--shape", "decode_32k",
-                     "--mesh", "single", "--seq-parallel", "--out",
-                     str(out)])
-    assert exc.value.code == 2
-    assert "--seq-parallel is not supported" in capsys.readouterr().err
-    assert not out.exists()
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_seq_parallel_cells(fake, shape, tmp_path):
+    """Sequence parallelism on: the same FLOPs; the residual stream
+    gathered once a unit and once after the last (in training also in
+    each unit's recompute, and its gradient in the backward of each
+    slice); and in training a remat carry a unit that is its slice of the
+    stream alone, so a rank's peak is lower.  A 1k sequence: two flash
+    chunks, each recomputed in the backward."""
+    from repro_torch.sharding.util import seq_parallel
+    cfg = SMOKE_FAMILIES["dense_gqa"]
+    s = dataclasses.replace(SHAPES[shape], seq_len=1024, global_batch=32)
+    base = dryrun.run_cell(cfg, s, False, str(tmp_path), verbose=False)
+    with seq_parallel():
+        sp = dryrun.run_cell(cfg, s, False, str(tmp_path), verbose=False,
+                             variant="sp")
+    assert sp["mesh"] == "single-sp" and sp["status"] == "ok"
+    assert sp["flops"] == base["flops"]
+    stream = s.global_batch // 16 * s.seq_len * cfg.d_model * 2   # bf16
+    n_units = cfg.n_layers
+    gathers = 3 * n_units + 2 if s.kind == "train" else n_units + 1
+    assert sp["collectives"] - base["collectives"] == gathers
+    assert sp["collective_bytes"] - base["collective_bytes"] == \
+        gathers * stream
+    if s.kind == "train":
+        carry, carry_sp = (r["memory"]["peak_bytes_per_unit"]
+                           for r in (base, sp))
+        assert carry - carry_sp == stream - stream // 16
+        assert stream <= carry < stream * 1.01
+        assert sp["memory"]["stack_peak_bytes"] < \
+            base["memory"]["stack_peak_bytes"]
+
+
+def test_cli_seq_parallel(fake, tmp_path):
+    """``--seq-parallel`` runs the sweep with the switch on, tags the
+    records ``sp`` unless ``--variant`` names another, and leaves the
+    switch off after it."""
+    from repro_torch.sharding.util import seq_axis
+    out = str(tmp_path / "d")
+    for flags, tag in ((["--seq-parallel"], "single-sp"),
+                       (["--seq-parallel", "--variant", "x"], "single-x")):
+        assert dryrun.main(["--arch", "dense-gqa-smoke", "--shape",
+                            "decode_32k", "--mesh", "single", "--out", out]
+                           + flags) == 0
+        with open(os.path.join(out, f"dense-gqa-smoke__decode_32k__{tag}"
+                               ".json")) as f:
+            assert json.load(f)["status"] == "ok"
+        assert seq_axis() is None
+
+
+def test_host_mesh_cell(fake):
+    """``chip_smoke.py``'s dry-run cell: a train cell's probes on a
+    (data 2, model 2) host mesh of a fake group, float32 parameters as
+    the smoke's ranks hold them (twice the bf16 cell's parameter bytes);
+    with sequence parallelism on, the 3 n_units + 2 gathers of the stream
+    the smoke counts on its ranks, and a smaller remat carry a unit."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import arg_bytes, build_cell
+    from repro_torch.sharding.util import seq_parallel
+    cfg = SMOKE_FAMILIES["dense_gqa"]
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64,
+                                global_batch=8)
+    dryrun.fake_world(4)
+    mesh = make_host_mesh(2, 2)
+    f32, bf16 = (arg_bytes(build_cell(cfg, shape, mesh, False,
+                                      param_dtype=dt))
+                 for dt in (torch.float32, torch.bfloat16))
+    assert f32["params"] == 2 * bf16["params"]
+    off = dryrun._probe(cfg, shape, mesh, False, 1, torch.float32)
+    with seq_parallel():
+        on = dryrun._probe(cfg, shape, mesh, False, 1, torch.float32)
+    stream = 8 // 2 * 64 * cfg.d_model * 4
+    assert off["peak_bytes_per_unit"] >= stream
+    assert on["peak_bytes_per_unit"] < off["peak_bytes_per_unit"]
+    assert on["collectives"] - off["collectives"] == 3 * cfg.n_layers + 2
+    assert on["flops"] == off["flops"]
 
 
 def test_mesh_constants_are_the_h100s():

@@ -311,6 +311,57 @@ def test_int8_codes_identical():
     assert np.abs(np.asarray(rq["b"])).max() == 127
 
 
+def _reciprocal_cases() -> np.ndarray:
+    """Largest |values| whose scale x / 127 rounds apart from
+    x * float32(1 / 127), the product PyTorch's CUDA division by a
+    Python number computes."""
+    x = np.random.RandomState(8).uniform(1e-3, 1.0, 4000).astype(np.float32)
+    off = x * (np.float32(1) / np.float32(127)) != x / np.float32(127)
+    assert off.sum() >= 20
+    return x[off][:20]
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.gpu)])
+def test_int8_scale_is_a_division(device):
+    """Each leaf's scale is its largest |value| divided by 127, rounded
+    once, as the reference's and the host's, on either device (PyTorch's
+    CUDA division by a Python number multiplies by its reciprocal, which
+    rounds apart for one value in 20: the card's second-round sync
+    momentum once differed from the host's by it)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for m in _reciprocal_cases():
+        absmax = torch.tensor(m, device=device)
+        _, scale, _ = t_comp.quantize(torch.full((3,), m, device=device),
+                                      absmax)
+        want = np.float32(m) / np.float32(127)
+        assert scale.cpu().numpy().view(np.int32) == want.view(np.int32), m
+        ref = r_comp.ef_int8_compress({"a": jnp.full((3,), m)},
+                                      r_comp.ef_init({"a": jnp.zeros(3)}))[1]
+        assert np.asarray(ref["a"]).view(np.int32) == want.view(np.int32)
+
+
+def test_int8_scale_divides_by_a_tensor():
+    """The op that makes the scale: ``quantize`` divides by a tensor on
+    the operand's device, never by a Python number (a CPU scalar, which
+    CUDA turns into a reciprocal multiply)."""
+    from torch.overrides import TorchFunctionMode
+
+    divisors = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.Tensor.__truediv__, torch.Tensor.div,
+                        torch.div, torch.true_divide):
+                divisors.append(args[1])
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        t_comp.quantize(torch.randn(5), torch.tensor(2.0))
+    assert divisors and all(isinstance(d, torch.Tensor) for d in divisors)
+
+
 # ---------------------------------------------------------------------------
 # hybrid sync
 # ---------------------------------------------------------------------------
