@@ -7,8 +7,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
 
 1. device   — a CUDA device must exist; prints ``nvidia-smi``'s name and
               power limit.
-2. build    — compiles the three CUDA kernels from ``src/repro_torch/csrc``
-              with nvcc (one process per source, in parallel).
+2. build    — compiles the four CUDA sources from ``src/repro_torch/csrc``
+              with nvcc (one process per source, in parallel): the three
+              kernels and ``graph_loop``, the device loop's WHILE node.
 2a. sweep   — both ``ell_spmv`` paths (K = 7, 8, 16; 128; 300, 7,056,
               32,897), ``min_step`` (K = 7, 8, 16) and both ``pr_step``
               paths (K = 7, 8, 16, 300; aligned, one row and one element
@@ -24,16 +25,39 @@ Phases, one line each (any failure exits non-zero and prints no result):
               P = 64) and incremental PageRank on R-MAT 2^21 (avg degree
               8, fennel at P = 64, ``ell_base_slices=16`` so hubs spill into
               extra ELL bins, 1/out-degree weights).
-4. main     — ``run_hybrid`` on each graph, with the kernel launch counts
-              and host-read counts zeroed just before and read just after;
-              prints iterations, paper counters, build and run seconds,
-              peak device memory, host syncs and launches per kernel.
-              Fails unless every kernel launched.
-5. oracle   — SSSP against scipy's Dijkstra (rtol 1e-4: float32 sums
+4. main     — ``run_hybrid`` on each graph (``device_loop=True``, the
+              default: one CUDA graph whose WHILE node iterates the global
+              iteration, the local phase's WHILE node nested in it), with
+              the kernel launch counts and host-read counts zeroed just
+              before and read just after; prints the loop taken,
+              iterations, paper counters, host build, run and graph-build
+              seconds, peak device memory, host syncs and launches per
+              kernel.  Fails unless every kernel launched.
+5. device_loop — the reference's device-resident loop on the card.
+              ``graph_loop`` against its plain loop: a toy loop of 2,000
+              trips as a WHILE node and as a host loop, bit for bit, one
+              host read and 2,001 set-condition launches, both timed per
+              trip.  ``main``'s two runs against the same calls stepped
+              wholly from the host (``run_hybrid(device_loop=False)``
+              inside ``device_loop.host_loops()``, so every local phase
+              too is a host loop launching one kernel at a time), and an
+              SSSP run cut at ``DL_CUT_STEPS`` local steps both ways (its
+              distances also equal to ``main``'s, its counters not): the
+              whole state bit for bit (NaN by position), iterations,
+              counters and the frontier kernels' launches equal; the
+              device loop makes one host read, and its set-condition
+              launches equal the host run's reads (one per evaluation of
+              a loop's condition).  Prints each run's seconds, host
+              reads, and capture and instantiate seconds apart, and
+              ``HOST_LOOPS``, the configurations whose loop runs on the
+              host.
+5a. oracle  — SSSP against scipy's Dijkstra (rtol 1e-4: float32 sums
               over up to ~4,000 hops against float64), PageRank against a
               scipy power iteration (rtol 2e-3, atol 5e-3: Algorithm 5
-              drops residuals <= tolerance at each receipt).
-5a. dist    — the distributed hybrid step (``repro_torch.core.
+              drops residuals <= tolerance at each receipt).  Both
+              references are computed by two spawned workers beside
+              ``main`` and ``device_loop``.
+5b. dist    — the distributed hybrid step (``repro_torch.core.
               distributed``) at world 4 on both graphs, rebuilt on the
               host with ``edge_blocks=4`` under the ``graphs`` phase's
               labels: 4 spawned ranks share the card and talk through
@@ -44,9 +68,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
               the same graph (the whole state, iterations, counters,
               per-partition pseudo-supersteps), SSSP also against
               ``main``'s distances; fails unless ``ell_spmv`` and
-              ``min_step`` (SSSP), ``pr_step`` and ``ell_spmv`` (PageRank)
-              launched in every rank; each kernel once at a rank's block
-              shapes against its plain version.  Prints seconds, per-rank
+              ``min_step`` (SSSP), ``pr_step`` and ``ell_spmv`` (PageRank),
+              and ``graph_loop`` (each rank's local phases loop on the
+              device) launched in every rank; each kernel once at a rank's
+              block shapes against its plain version.  Prints seconds, per-rank
               pseudo-supersteps, host syncs, collectives and exchange
               bytes per iteration, staged bytes and peak device memory.
               Then SSSP over a bfloat16 wire, traced, stopped at 24
@@ -110,7 +135,8 @@ Phases, one line each (any failure exits non-zero and prints no result):
               ``checkpoint_every=3``, exactly one recovery; each must end
               on the ``main`` run's final state and counters bit for bit
               (NaN by position), with ``ell_spmv`` and ``min_step`` (SSSP)
-              and ``pr_step`` (PageRank) launched inside the runs.  Prints
+              and ``pr_step`` (PageRank), and ``graph_loop``, launched
+              inside the runs.  Prints
               checkpoint bytes, snapshot / write / restore seconds,
               iterations lost and the ``graph_digest`` seconds.  Then
               WidestPath on the apps phase's R-MAT 2^16: its ``.ghp``
@@ -292,7 +318,18 @@ KERNELS = {
                  "src/repro_torch/csrc/min_step.cu"),
     "pr_step": ("src/repro/kernels/pr_step/pr_step.py:63",
                 "src/repro_torch/csrc/pr_step.cu"),
+    # no Pallas kernel: the reference's device loop, lax.while_loop
+    "graph_loop": ("src/repro/exec/driver.py:85",
+                   "src/repro_torch/csrc/graph_loop.cu"),
 }
+# the kernels that take a frontier (every one but the loop's)
+FRONTIER_KERNELS = ("ell_spmv", "min_step", "pr_step")
+
+# phase device_loop: the SSSP cutoff run's max_local_steps (most of the
+# grid's local phases run past it), and the toy loop's trips and width
+DL_CUT_STEPS = 256
+DL_TOY_TRIPS = 2000
+DL_TOY_N = 1024
 
 
 def say(phase: str, **fields) -> None:
@@ -457,26 +494,37 @@ def rmat_pagerank_graph():
 
 
 def run_counted(phase, app, engine, graph, prog, use_ell=True, vdata=None,
-                quiet=False):
+                quiet=False, **kw):
     """One ``run_hybrid`` / ``run_bsp`` / ``run_am`` (``engine``) through
     the entry point a user calls, launch and host-read counts zeroed just
-    before and read just after."""
+    before and read just after; ``kw`` goes to the entry point
+    (``device_loop``, ``max_local_steps``).  ``loop`` names the outer loop
+    the run took: ``run_hybrid``'s is on the device unless
+    ``device_loop=False``; ``run_bsp`` and ``run_am`` have no device loop
+    (nor have the reference's).  Every hybrid local phase loops on the
+    device.  ``build_s`` is the seconds spent capturing and instantiating
+    the run's graphs, part of ``run_s``."""
     import torch
     from repro_torch import run_am, run_bsp, run_hybrid
+    from repro_torch.exec.device_loop import BUILDS, reset_builds
     from repro_torch.exec.syncs import host_reads, reset_host_reads
     from repro_torch.kernels.common import LAUNCHES, reset_launches
 
     runner = {"hybrid": run_hybrid, "bsp": run_bsp, "am": run_am}[engine]
+    loop = "device" if engine == "hybrid" and kw.get("device_loop", True) \
+        else "host"
     sync()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reset_host_reads()
+    reset_builds()
     t = time.perf_counter()
-    es, iters = runner(graph, prog, vdata=vdata, use_ell=use_ell)
+    es, iters = runner(graph, prog, vdata=vdata, use_ell=use_ell, **kw)
     sync()
     secs = time.perf_counter() - t
     launches = dict(LAUNCHES)
     syncs = host_reads()
+    builds = dict(BUILDS)
     c = es.counters
     counters = dict(iterations=int(c.iterations),
                     pseudo_supersteps=int(c.pseudo_supersteps.sum()),
@@ -486,25 +534,57 @@ def run_counted(phase, app, engine, graph, prog, use_ell=True, vdata=None,
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not quiet:
         say(phase, app=app, engine=engine,
-            delivery="ell" if use_ell else "dense", iterations=iters,
-            run_s=f"{secs:.3f}", peak_device_GiB=f"{peak:.2f}",
+            delivery="ell" if use_ell else "dense", loop=loop,
+            iterations=iters, run_s=f"{secs:.3f}",
+            build_s=f"{builds['capture_s'] + builds['instantiate_s']:.3f}",
+            peak_device_GiB=f"{peak:.2f}",
             host_syncs=syncs, launches=json.dumps(launches).replace(" ", ""),
             counters=json.dumps(counters).replace(" ", ""))
     return es, dict(iterations=iters, run_s=secs, peak_device_GiB=peak,
-                    host_syncs=syncs, launches=launches, counters=counters)
+                    host_syncs=syncs, launches=launches, counters=counters,
+                    loop=loop, builds=builds)
 
 
-def check_sssp(graph, es, data):
+def start_main_oracles(pool, wd, sssp_data, pr_data):
+    """The ``oracle`` phase's references, submitted to ``pool`` (spawned
+    workers, so they run beside ``main`` and ``device_loop`` on the card):
+    scipy's Dijkstra from vertex 0 on the grid and the PageRank power
+    iteration of :func:`pagerank_oracle` on R-MAT.  Returns their
+    futures."""
     import numpy as np
-    from scipy.sparse import csr_matrix
-    from scipy.sparse.csgraph import dijkstra
+    edges, w, n = sssp_data
+    grid_csr = os.path.join(wd, "main_grid_csr.npz")
+    _oracle_csr(grid_csr, edges[:, 0], edges[:, 1], w.astype(np.float64),
+                n)
+    pe, _, pn = pr_data
+    deg = np.maximum(np.bincount(pe[:, 0], minlength=pn), 1)
+    rmat_csr = os.path.join(wd, "main_rmat_csr.npz")
+    _oracle_csr(rmat_csr, pe[:, 1], pe[:, 0], 0.85 / deg[pe[:, 0]], pn)
+    return (pool.submit(_oracle_dijkstra, grid_csr, [0],
+                        os.path.join(wd, "main_dij.npy")),
+            pool.submit(_oracle_pagerank, rmat_csr,
+                        os.path.join(wd, "main_pr.npy")))
+
+
+def _oracle_pagerank(csr_path, out_path):
+    """Worker: :func:`pagerank_oracle`'s power iteration on the saved
+    matrix (the same one, the same operations)."""
+    import numpy as np
+    a = _load_csr(csr_path)
+    r = np.full(a.shape[0], 0.15)
+    for _ in range(200):
+        r = 0.15 + a @ r
+    np.save(out_path, r)
+    return out_path
+
+
+def check_sssp(graph, es, data, want):
+    """``main``'s distances against scipy's Dijkstra (``want``, from
+    :func:`start_main_oracles`)."""
+    import numpy as np
     from repro_torch import unpack_vertex
 
-    edges, w, n = data
     got = unpack_vertex(graph, es.state["dist"])
-    adj = csr_matrix((w.astype(np.float64), (edges[:, 0], edges[:, 1])),
-                     shape=(n, n))
-    want = dijkstra(adj, indices=0)
     err = _rel_err(got, want)
     ok = bool(np.isfinite(got).all()) and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-4)
@@ -568,6 +648,190 @@ DIST_DEADLINE_S = 300.0   # per spawn: a hung rank fails the phase
 # joined the smoke): past the 20 in which the float32 run reaches every
 # vertex, so every distance is finite (12 left some at inf)
 DIST_BF16_MAX_ITERS = 24
+
+
+# --------------------------------------------------------------------------
+# phase device_loop: the reference's device-resident loop on the card
+# --------------------------------------------------------------------------
+
+#: where the card runs a loop on the host (``run_engine``'s ``device_loop``,
+#: the reference's rule): every other loop, and every local phase, is a
+#: WHILE node of a CUDA graph, except inside ``device_loop.host_loops()``,
+#: which only this script enters, for the plain runs of phase device_loop
+HOST_LOOPS = ("outer loop of run_engine(device_loop=False): "
+              "run_hybrid(device_loop=False), run_bsp, run_am, run_hybrid_ft, "
+              "checkpointed serving batches, ServeEngine.stream, stepwise "
+              "traced runs, phased_run, run_dist_hybrid (its halt and "
+              "exchange are host-staged); every local phase on the device; "
+              "every loop inside device_loop.host_loops(), entered by this "
+              "script alone for phase device_loop's host-stepped runs")
+
+
+def device_loop_toy():
+    """``graph_loop`` against its plain loop: a loop of ``DL_TOY_TRIPS``
+    trips over a (``DL_TOY_N``,) float32 carry, as a WHILE node and as the
+    same functions in a host loop (one read a trip), bit for bit; the node
+    makes one host read (the result's) and ``DL_TOY_TRIPS`` + 1
+    set-condition launches.  Both timed per trip.  Returns the kernel
+    row."""
+    import torch
+    from repro_torch.exec.device_loop import graph_cache, while_loop
+    from repro_torch.exec.syncs import (host_read_int, host_reads,
+                                        reset_host_reads)
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x0 = torch.rand((DL_TOY_N,), generator=gen, device="cuda")
+    k0 = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def cond(c):
+        return c[1] < DL_TOY_TRIPS
+
+    def body(c):
+        return (c[0] + 1.25) * 0.5, c[1] + 1
+
+    def plain():
+        c = (x0, k0)
+        while bool(cond(c)):
+            c = body(c)
+        return c
+
+    store = {}
+
+    def node():
+        with graph_cache(store):
+            return while_loop(cond, body, (x0, k0))
+
+    sync()
+    reset_launches()
+    reset_host_reads()
+    got = node()
+    trips = host_read_int(got[1])
+    reads, launches = host_reads(), LAUNCHES["graph_loop"]
+    want = plain()
+    sync()
+    same = _same(got[0], want[0]) and trips == int(want[1]) == DL_TOY_TRIPS
+    err = _max_abs_err(got[0], want[0])
+    ms = time_ms(node, 3) / DL_TOY_TRIPS
+    plain_ms = time_ms(plain, 1, windows=1) / DL_TOY_TRIPS
+    # a trip reads and writes the carry and reads the flag
+    nbytes = 2 * (x0.nbytes + k0.nbytes) + 4
+    row = dict(name="graph_loop",
+               shape=f"a trip of a toy loop, ({DL_TOY_N},) float32 carry",
+               bit_identical=same, max_abs_err=err,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bytes=nbytes, nnz=0, ms=ms, device_ms=ms, plain_ms=plain_ms,
+               library_ms=None, library_device_ms=None, trips=trips,
+               host_reads=reads, launches=launches)
+    say("device_loop", toy=f"{DL_TOY_TRIPS} trips", bit_identical=same,
+        host_reads=reads, graph_loop_launches=launches,
+        ms_per_trip=f"{ms:.5f}", plain_ms_per_trip=f"{plain_ms:.5f}")
+    if not same or reads != 1 or launches != trips + 1:
+        raise AssertionError(
+            f"device_loop toy: node against plain loop bit_identical={same},"
+            f" {reads} host reads (want 1), {launches} set-condition "
+            f"launches (want {trips + 1})")
+    return row
+
+
+def _loops_agree(app, label, dev, dev_run, host, host_run):
+    """A device-loop run against the same call stepped wholly from the host
+    (``run_hybrid(device_loop=False)`` inside ``host_loops()``, so the
+    local phases too loop on the host): state bit for bit (NaN by
+    position), iterations, counters, the frontier kernels' launches.  The
+    device run makes one host read; the host run reads each loop's
+    condition once a trip and once more at its end, which is exactly when
+    the device run launches the set-condition kernel, so its
+    ``graph_loop`` launches equal the host run's reads (and the host run
+    launches none)."""
+    from repro_torch.convert import to_numpy
+
+    it = dev_run["iterations"]
+    checks = dict(
+        state=_state_same(host, to_numpy(dev)),
+        iterations=it == host_run["iterations"],
+        counters=dev_run["counters"] == host_run["counters"],
+        launches=all(dev_run["launches"][k] == host_run["launches"][k]
+                     for k in FRONTIER_KERNELS),
+        graph_loop=(dev_run["launches"]["graph_loop"]
+                    == host_run["host_syncs"]
+                    and host_run["launches"]["graph_loop"] == 0),
+        host_reads=dev_run["host_syncs"] == 1)
+    rows = {}
+    for loop, r in (("device", dev_run), ("host", host_run)):
+        rows[loop] = dict(run_s=r["run_s"], host_syncs=r["host_syncs"],
+                          capture_s=r["builds"]["capture_s"],
+                          instantiate_s=r["builds"]["instantiate_s"],
+                          loops_built=r["builds"]["loops"],
+                          launches=r["launches"])
+        say("device_loop", app=app, run=label, loop=loop, iterations=it,
+            run_s=f"{r['run_s']:.3f}", host_syncs=r["host_syncs"],
+            capture_s=f"{r['builds']['capture_s']:.3f}",
+            instantiate_s=f"{r['builds']['instantiate_s']:.3f}",
+            loops_built=r["builds"]["loops"])
+    say("device_loop", app=app, run=label,
+        **{k: v for k, v in checks.items()})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"device_loop {app} {label}: device loop and "
+                             f"host loop differ in {bad}")
+    return dict(iterations=it, checks=checks, **rows)
+
+
+def _host_stepped(app, graph, prog, **kw):
+    """``run_hybrid(device_loop=False)`` with every local phase on the host
+    too (``host_loops()``): the plain run the device loops are held
+    against."""
+    from repro_torch.exec.device_loop import host_loops
+    with host_loops():
+        es, run = run_counted("device_loop", app, "hybrid", graph, prog,
+                              device_loop=False, **kw)
+    run["loop"] = "host-stepped"
+    return es, run
+
+
+def phase_device_loop(sssp_graph, sssp_es, sssp_run, pr_graph, pr_es,
+                      pr_run):
+    """The toy loop, then ``main``'s two runs (``device_loop=True``, the
+    default: every loop a WHILE node) against the same calls stepped
+    wholly from the host, and an SSSP run cut at ``DL_CUT_STEPS`` local
+    steps both ways (its distances also equal to ``main``'s: a monotone
+    fixed point does not depend on the cut, while its counters must)."""
+    import torch
+    from repro_torch import SSSP, IncrementalPageRank
+
+    t0 = time.perf_counter()
+    say("device_loop", host_loops=HOST_LOOPS)
+    toy = device_loop_toy()
+    out = dict(toy=toy, host_loops=HOST_LOOPS)
+    for app, graph, make, es, run in (
+            ("sssp", sssp_graph, lambda: SSSP(source=0), sssp_es, sssp_run),
+            ("pagerank", pr_graph,
+             lambda: IncrementalPageRank(tolerance=PR_TOL), pr_es, pr_run)):
+        host, host_run = _host_stepped(app, graph, make())
+        out[app] = _loops_agree(app, "full", es, run, host, host_run)
+        del host
+        torch.cuda.empty_cache()
+    cut = {True: run_counted("device_loop", "sssp", "hybrid", sssp_graph,
+                             SSSP(source=0), max_local_steps=DL_CUT_STEPS),
+           False: _host_stepped("sssp", sssp_graph, SSSP(source=0),
+                                max_local_steps=DL_CUT_STEPS)}
+    out["sssp_cutoff"] = _loops_agree("sssp", f"cut{DL_CUT_STEPS}",
+                                      *cut[True], *cut[False])
+    dist_same = _same(cut[True][0].state["dist"], sssp_es.state["dist"])
+    cut_engaged = cut[True][1]["counters"] != sssp_run["counters"]
+    say("device_loop", app="sssp", run=f"cut{DL_CUT_STEPS}",
+        dist_equal_to_main=dist_same, counters_differ_from_main=cut_engaged)
+    if not (dist_same and cut_engaged):
+        raise AssertionError(
+            f"device_loop sssp cutoff: distances equal to main {dist_same},"
+            f" counters differ from main {cut_engaged} (want both)")
+    del cut
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    say("device_loop", phase_s=f"{secs:.1f}")
+    out["phase_s"] = secs
+    return out
 
 
 def dist_graphs(sssp_data, pr_data, pr_part):
@@ -707,8 +971,8 @@ def phase_dist(sssp_graph, sssp_data, sssp_es, sssp_dijkstra, pr_data,
     graphs = dist_graphs(sssp_data, pr_data, pr_part)
     makes = {"sssp": lambda: SSSP(source=0),
              "pagerank": lambda: IncrementalPageRank(tolerance=PR_TOL)}
-    need = {"sssp": ("ell_spmv", "min_step"),
-            "pagerank": ("pr_step", "ell_spmv")}
+    need = {"sssp": ("ell_spmv", "min_step", "graph_loop"),
+            "pagerank": ("pr_step", "ell_spmv", "graph_loop")}
     out = {}
     for app in ("sssp", "pagerank"):
         graph = graphs[app]
@@ -1293,17 +1557,22 @@ def phase_profile(app, graph, prog, iters):
     main path under ``torch.profiler`` — device busy share of the wall time
     and the kernels (ours and PyTorch's glue) by device time."""
     from repro_torch import run_hybrid
+    from repro_torch.exec.device_loop import BUILDS, reset_builds
 
+    reset_builds()
     wall, busy, launches, table = _profiled(
         lambda: run_hybrid(graph, prog, max_iters=iters), 12)
+    # the run builds its graphs first (warm-up, capture, instantiate):
+    # host time in the wall, the warm-up's kernels in the busy time
+    build = BUILDS["capture_s"] + BUILDS["instantiate_s"]
     say("profile", app=app, iterations=iters, wall_s=f"{wall:.3f}",
-        device_busy_s=f"{busy:.3f}",
+        build_s=f"{build:.3f}", device_busy_s=f"{busy:.3f}",
         idle_share=f"{1 - busy / wall:.3f}" if launches else "not captured")
     for r in table:
         say("profile", app=app, calls=r["calls"],
             device_ms=f"{r['device_ms']:.2f}", kernel=repr(r["kernel"]))
-    return dict(iterations=iters, wall_s=wall, device_busy_s=busy,
-                top_kernels=table)
+    return dict(iterations=iters, wall_s=wall, build_s=build,
+                device_busy_s=busy, top_kernels=table)
 
 
 # --------------------------------------------------------------------------
@@ -1887,7 +2156,8 @@ def ft_app(app, graph, make, want, want_iters, base):
     if ev is None:
         raise AssertionError(f"ft {app}: {len(rb.recoveries)} recoveries, "
                              f"want exactly one")
-    need = ("ell_spmv", "min_step") if app == "sssp" else ("pr_step",)
+    need = ("ell_spmv", "min_step", "graph_loop") if app == "sssp" \
+        else ("pr_step", "graph_loop")
     for label, counts in (("kill-resume", launches_a),
                           ("injected-kill", lb)):
         idle = [name for name in need if not counts[name]]
@@ -2075,15 +2345,17 @@ def _serve_counted(label, fn, n_queries, K):
     """``fn()`` (a dispatch) counted as ``_counted`` counts, with its
     launches with L > 1 apart and the card's peak memory."""
     import torch
+    from repro_torch.exec.device_loop import BUILDS, reset_builds
     from repro_torch.kernels.common import LANE_LAUNCHES
     sync()
     torch.cuda.reset_peak_memory_stats()
+    reset_builds()
     out, secs, launches, syncs = _counted(fn)
     row = dict(batch=label, K=K, queries=n_queries, seconds=secs,
                queries_per_s=n_queries / secs,
                peak_device_GiB=torch.cuda.max_memory_allocated() / 2**30,
                host_syncs=syncs, launches=launches,
-               lane_launches=dict(LANE_LAUNCHES))
+               lane_launches=dict(LANE_LAUNCHES), builds=dict(BUILDS))
     return out, row
 
 
@@ -2093,6 +2365,9 @@ def _say_batch(row):
         queries_per_s=f"{row['queries_per_s']:.2f}",
         peak_device_GiB=f"{row['peak_device_GiB']:.2f}",
         host_syncs=row["host_syncs"],
+        loops_built=row["builds"]["loops"],
+        build_s=f"{row['builds']['capture_s']
+                   + row['builds']['instantiate_s']:.3f}",
         launches=json.dumps(row["launches"]).replace(" ", ""),
         launches_L_gt_1=json.dumps(row["lane_launches"]).replace(" ", ""))
 
@@ -2327,7 +2602,7 @@ def phase_serve(sssp_graph, sssp_data, sssp_es, pr_graph, pr_data):
             max_abs_err=f"{err:.3e}", lanes_inside_oracle_tol=inside,
             held=False)
     lane_launches = {k: sum(r["lane_launches"][k] for r in rows)
-                     for k in KERNELS}
+                     for k in FRONTIER_KERNELS}
     secs = time.perf_counter() - t0
     say("serve", graph_digest_s=f"{digest_s:.3f}",
         lane_launches=json.dumps(lane_launches).replace(" ", ""),
@@ -3829,6 +4104,16 @@ def main() -> int:
     pr_graph, pr_data, pr_build_s, pr_part = rmat_pagerank_graph()
     lap("graphs")
 
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    oracle_dir = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+    oracle_pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    dij_f, pr_f = start_main_oracles(oracle_pool, oracle_dir.name,
+                                     sssp_data, pr_data)
+
     sssp_prog, pr_prog = SSSP(source=0), IncrementalPageRank(tolerance=PR_TOL)
     sssp_es, sssp_run = run_counted("main", "sssp", "hybrid", sssp_graph,
                                     sssp_prog)
@@ -3841,8 +4126,16 @@ def main() -> int:
         raise AssertionError(f"main path never launched {missing}")
     lap("main")
 
-    sssp_err, sssp_dijkstra = check_sssp(sssp_graph, sssp_es, sssp_data)
+    dloop = phase_device_loop(sssp_graph, sssp_es, sssp_run, pr_graph,
+                              pr_es, pr_run)
+    lap("device_loop")
+
+    sssp_err, sssp_dijkstra = check_sssp(sssp_graph, sssp_es, sssp_data,
+                                         np.load(dij_f.result())[0])
+    _PR_ORACLE[id(pr_data[0])] = (pr_data[0], np.load(pr_f.result()))
     pr_err = check_pagerank(pr_graph, pr_es, pr_data)
+    oracle_pool.shutdown()
+    oracle_dir.cleanup()
     lap("oracle")
 
     dist = phase_dist(sssp_graph, sssp_data, sssp_es, sssp_dijkstra,
@@ -3852,6 +4145,7 @@ def main() -> int:
 
     report, timed = kernel_checks(sssp_graph, sssp_prog, sssp_es,
                                   pr_graph, pr_prog, pr_es)
+    timed["graph_loop"] = dloop["toy"]
     lap("kernels")
     profiles = dict(
         sssp=phase_profile("sssp", sssp_graph, SSSP(source=0), 2),
@@ -3907,7 +4201,8 @@ def main() -> int:
                                      oracle_max_abs_err=pr_err, **pr_run),
                        kernel_cases=report, kernels=kernels,
                        profiles=profiles, engines=engines, apps=apps,
-                       io=io, ft=ft, serve=serve, obs=obs, dist=dist,
+                       device_loop=dloop, io=io, ft=ft, serve=serve,
+                       obs=obs, dist=dist,
                        lm=lm, mesh=mesh, phase_s=phase_s), f, indent=1)
 
     say("done", seconds=f"{time.perf_counter() - t0:.1f}",

@@ -4,12 +4,15 @@
 This is the paper's architecture.  Each rank owns one contiguous block of
 partitions, as one ``shard_map`` device does in the reference, and
 iterates pseudo-supersteps on it to its own partitions' quiescence: no
-collective runs inside that local loop, and each rank's
-``running.any()`` read is its own.  The only communication of a global
-iteration is one all-gather of the export tables (the exchange), plus one
-all-reduce of the iteration's counter deltas onto the replicated totals
-(the master's aggregation); the driver's quiescence check is one more
-all-reduce (:func:`dist_quiescent`, the master polling its workers).
+collective runs inside that local loop, which runs on the rank's device
+(a WHILE node of a CUDA graph on the card,
+:mod:`repro_torch.exec.device_loop`).  The outer loop stays host-driven:
+its quiescence check is read on the host.  The only communication of a
+global iteration is one all-gather of the export tables (the exchange),
+plus one all-reduce of the iteration's counter deltas onto the
+replicated totals (the master's aggregation); the driver's quiescence
+check is one more all-reduce (:func:`dist_quiescent`, the master polling
+its workers).
 
 A rank's block (:func:`block_view`, :func:`block_state`) slices every
 tensor leaf on dim 0 — vertex families by partition, edge families and

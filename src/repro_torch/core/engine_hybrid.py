@@ -40,14 +40,18 @@ def run_hybrid(
     max_local_steps: int = 100_000,
     use_ell: bool = True,
     collect_metrics: bool = True,
+    device_loop: bool = True,
     device: str | torch.device | None = None,
 ) -> tuple[EngineState, int]:
     """Run global iterations to quiescence.
 
-    The reference's signature, except that ``device_loop`` is gone: eager
-    PyTorch has no counterpart of a jitted device-side outer loop, so the
-    loop is always host-driven, with one ``quiescent`` read per global
-    iteration (and one ``running.any()`` read per pseudo-superstep).
+    The reference's signature, plus ``device``.  ``device_loop=True``
+    (default) runs the whole outer loop on the device: on the card one
+    CUDA graph whose WHILE node iterates the global iteration, with each
+    local phase's WHILE node nested in it, so the host syncs exactly once,
+    at the end.  ``device_loop=False`` keeps the host-driven outer loop (one
+    ``quiescent`` read per global iteration; each local phase still loops
+    on the device), for stepping iteration by iteration.
 
     Args:
         graph: the ``PartitionedGraph`` to iterate over, on ``device``.
@@ -60,6 +64,8 @@ def run_hybrid(
             qualifies; ``False`` forces the dense gather/segment path
             (identical results and counters).
         collect_metrics: maintain the paper's message counters.
+        device_loop: see above; both loops give the same state, iterations
+            and counters.
         device: where the run happens — ``cuda`` unless ``"cpu"`` is
             passed; the graph must already live there.
 
@@ -76,5 +82,6 @@ def run_hybrid(
     check_graph_device(graph, device)
     policy = hybrid_policy(use_ell=use_ell, collect_metrics=collect_metrics,
                            max_local_steps=max_local_steps)
-    ctx = run_engine(graph, prog, policy, vdata, max_iters=max_iters)
+    ctx = run_engine(graph, prog, policy, vdata, max_iters=max_iters,
+                     device_loop=device_loop)
     return ctx.es, ctx.iteration

@@ -9,11 +9,13 @@ calls it once per global iteration; ``chip_smoke.py`` calls
 over the kernels' plain versions, so the steps it checks are the ones the
 engine runs.
 
-The reference iterates a device-side ``lax.while_loop``.  Here the loop is
-host-driven: each pseudo-superstep reads ``running.any()`` once (one host
-sync, counted by :mod:`repro_torch.exec.syncs`) and checks the
-``max_local_steps`` budget before that read.  Results, trip counts and
-counters are the reference's.
+Each loop is the reference's ``lax.while_loop``, written as ``cond`` /
+``body`` over a carry and run by
+:func:`repro_torch.exec.device_loop.while_loop`: on the card a conditional
+WHILE node of a CUDA graph, so no pseudo-superstep reads the host (the
+condition, ``running.any() and k < max_local_steps``, is computed on the
+device); on the CPU the same functions in a host loop.  Results, trip
+counts and counters are the reference's.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from repro_torch.core.runtime import (EngineState, _has_any_pending,
                                       ell_combine_bins, ell_send_accounting,
                                       slice_flat)
 from repro_torch.core.vertex_program import StepInfo, VertexProgram
-from repro_torch.exec.syncs import host_read
+from repro_torch.exec.device_loop import while_loop
 from repro_torch.kernels.common import (MONOTONE_SEMIRINGS, SEMIRINGS, f32,
                                         semiring_improves)
 from repro_torch.kernels.ell_spmv import ell_spmv_ref
@@ -197,18 +199,20 @@ def _fused_pr_local_phase(graph, prog, es, running0, max_local_steps,
     exp_out = es.export_out["delta"] + torch.where(send, p0, 0.0)
     exp_send = torch.logical_or(es.export_send, vany(send))
     c0 = es.counters
+    dev = rank.device
 
-    delta, has, running = p0, has0, running0
-    pseudo = c0.pseudo_supersteps
-    net_local = torch.zeros_like(c0.net_local_messages)
-    mem = torch.zeros_like(c0.mem_messages)
-    prev = (rank, out_delta, exp_out, exp_send, send)
-    k = 0
-    while k < max_local_steps and host_read(torch.any(running)):
+    def cond(carry):
+        running, k = carry[7], carry[10]
+        return torch.logical_and(torch.any(running), k < max_local_steps)
+
+    def body(carry):
+        (rank, delta, send, has, out_d, eo, esend, running, pseudo,
+         metrics, k, _prev) = carry
         # pre-step apply state, so a max_local_steps cutoff can roll the
         # final fused apply back to generic-path semantics (see below)
-        prev = (rank, out_delta, exp_out, exp_send, send)
+        prev = (rank, out_d, eo, esend, send)
         rank_n, d_in, send_n = kstep(rank, delta, send)
+        net_local, mem = metrics
         if collect_metrics:
             has_n, mem_inc = ell_send_accounting(graph, slices, views,
                                                  vany(send).reshape(-1), p)
@@ -217,16 +221,23 @@ def _fused_pr_local_phase(graph, prog, es, running0, max_local_steps,
         else:
             has_n = vany(d_in > 0)     # positive-contribution invariant
         if ch.lanes:
-            out_delta = torch.where(ex(has_n), torch.where(send_n, d_in, 0.0),
-                                    out_delta)
+            out_d = torch.where(ex(has_n), torch.where(send_n, d_in, 0.0),
+                                out_d)
         else:
-            out_delta = torch.where(has_n, d_in, out_delta)
-        exp_out = exp_out + torch.where(send_n, d_in, 0.0)
-        exp_send = torch.logical_or(exp_send, vany(send_n))
+            out_d = torch.where(has_n, d_in, out_d)
+        eo = eo + torch.where(send_n, d_in, 0.0)
+        esend = torch.logical_or(esend, vany(send_n))
         running = torch.any(has_n, dim=1)
         pseudo = pseudo + running.to(pseudo.dtype)
-        rank, delta, send, has = rank_n, d_in, send_n, has_n
-        k += 1
+        return (rank_n, d_in, send_n, has_n, out_d, eo, esend, running,
+                pseudo, (net_local, mem), k + 1, prev)
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    carry0 = (rank, p0, send, has0, out_delta, exp_out, exp_send, running0,
+              c0.pseudo_supersteps, (zero, zero), zero,
+              (rank, out_delta, exp_out, exp_send, send))
+    (rank, delta, send, has, out_delta, exp_out, exp_send, _, pseudo,
+     (net_local, mem), _, prev) = while_loop(cond, body, carry0)
 
     # max_local_steps cutoff: the kernel already folded the final delivery
     # into rank/out/export, but the generic path leaves it pending-only for
@@ -287,16 +298,17 @@ def _fused_min_local_phase(graph, prog, es, running0, max_local_steps,
     esend = torch.logical_or(es.export_send, vany(send1))
     c0 = es.counters
 
-    x, d_in, send, has, running = x1, m0f, send1, has0, running0
-    pseudo = c0.pseudo_supersteps
-    net_local = torch.zeros_like(c0.net_local_messages)
-    mem = torch.zeros_like(c0.mem_messages)
-    prev = (x, eo, esend, send)
-    k = 0
-    while k < max_local_steps and host_read(torch.any(running)):
+    def cond(carry):
+        running, k = carry[6], carry[9]
+        return torch.logical_and(torch.any(running), k < max_local_steps)
+
+    def body(carry):
+        (x, d_in, send, has, eo, esend, running, pseudo, metrics, k,
+         _prev) = carry
         # pre-step apply state for the max_local_steps cutoff rollback
         prev = (x, eo, esend, send)
         x_n, d_n, send_n = kstep(x, send)
+        net_local, mem = metrics
         if collect_metrics:
             has_n, mem_inc = ell_send_accounting(graph, slices, views,
                                                  vany(send).reshape(-1), p)
@@ -309,8 +321,15 @@ def _fused_min_local_phase(graph, prog, es, running0, max_local_steps,
         esend = torch.logical_or(esend, vany(send_n))
         running = torch.any(has_n, dim=1)
         pseudo = pseudo + running.to(pseudo.dtype)
-        x, d_in, send, has = x_n, d_n, send_n, has_n
-        k += 1
+        return (x_n, d_n, send_n, has_n, eo, esend, running, pseudo,
+                (net_local, mem), k + 1, prev)
+
+    zero = torch.zeros((), dtype=torch.int64, device=x1.device)
+    carry0 = (x1, m0f, send1, has0, eo, esend, running0,
+              c0.pseudo_supersteps, (zero, zero), zero,
+              (x1, eo, esend, send1))
+    (x, d_in, send, has, eo, esend, _, pseudo, (net_local, mem), _,
+     prev) = while_loop(cond, body, carry0)
 
     # max_local_steps cutoff: roll the final fused apply back so the still-
     # pending delivery is not applied twice (identity at a quiescent exit)
@@ -370,18 +389,28 @@ def local_phase(
         return _fused_min_local_phase(graph, prog, es, running0,
                                       max_local_steps, collect_metrics)
 
-    running, k = running0, 0
-    while k < max_local_steps and host_read(torch.any(running)):
+    def cond(carry):
+        _, running, k, _, _ = carry
+        return torch.logical_and(torch.any(running), k < max_local_steps)
+
+    def body(carry):
+        es_, running, k, step, participate = carry
         mask = torch.logical_and(participate, running[:, None])
-        info_l = StepInfo(superstep=superstep, pseudo_step=k + 1,
-                          phase="local")
-        es = apply_phase(graph, prog, es, mask, info_l, vdata)
-        es, _ = deliver(graph, prog, es, edges="local", use_ell=use_ell,
-                        collect_metrics=collect_metrics)
-        running = partition_running(graph, prog, es, mask, vdata)
-        c = es.counters
-        es = dataclasses.replace(es, counters=dataclasses.replace(
+        info_l = StepInfo(superstep=step, pseudo_step=k + 1, phase="local")
+        es_ = apply_phase(graph, prog, es_, mask, info_l, vdata)
+        es_, _ = deliver(graph, prog, es_, edges="local", use_ell=use_ell,
+                         collect_metrics=collect_metrics)
+        running = partition_running(graph, prog, es_, mask, vdata)
+        c = es_.counters
+        es_ = dataclasses.replace(es_, counters=dataclasses.replace(
             c, pseudo_supersteps=c.pseudo_supersteps
             + running.to(c.pseudo_supersteps.dtype)))
-        k += 1
+        return es_, running, k + 1, step, participate
+
+    k0 = torch.zeros((), dtype=torch.int64, device=running0.device)
+    step0 = torch.as_tensor(superstep, device=running0.device)
+    # the participation mask rides the carry (unchanged, so never copied
+    # back): a fresh mask in the closure would key a new graph every call
+    es, _, _, _, _ = while_loop(cond, body,
+                                (es, running0, k0, step0, participate))
     return es

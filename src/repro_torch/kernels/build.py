@@ -20,7 +20,7 @@ from pathlib import Path
 __all__ = ["KERNELS", "NVCC_FLAGS", "build_dir", "build", "load", "bind"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("ell_spmv", "min_step", "pr_step")
+KERNELS = ("ell_spmv", "min_step", "pr_step", "graph_loop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")

@@ -18,7 +18,8 @@ import torch
 
 __all__ = ["minimum", "maximum", "SEMIRINGS", "SEMIRING_IDS", "MONOTONE_SEMIRINGS", "FOLD_SLICES",
            "semiring_improves", "fold_block", "slot_fold", "f32", "LAUNCHES",
-           "LANE_LAUNCHES", "reset_launches", "check_ell_operands",
+           "LANE_LAUNCHES", "reset_launches", "TripCount", "defer_launches",
+           "unsettled", "settle_launches", "check_ell_operands",
            "check_rows", "require_cuda_contiguous", "ell_pack_numpy",
            "ell_bin_widths", "sliced_ell_pack_numpy"]
 
@@ -65,16 +66,65 @@ MONOTONE_SEMIRINGS = frozenset({"min_add", "min_mul", "max_add", "max_min"})
 FOLD_SLICES = 128
 
 #: Kernel launches per wrapper; each wrapper adds one where it launches its
-#: CUDA kernel and nowhere else (the plain versions do not count).
-LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0}
+#: CUDA kernel and nowhere else (the plain versions do not count).  Inside a
+#: captured loop a wrapper's Python body runs once, at capture, while its
+#: kernel runs once a trip: such launches are counted by :class:`TripCount`
+#: and land here at the next host read (:func:`settle_launches`).
+#: ``graph_loop`` counts the loop's set-condition kernel.
+LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0, "graph_loop": 0}
 # the launches of LAUNCHES that took an (N, L) frontier with L > 1 (the
 # K-lane programs' queries), counted at the same place
 LANE_LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0}
 
 
+class TripCount:
+    """The launches one trip of a captured loop body makes (``per_trip``,
+    ``lane_per_trip``, known at capture) and a device counter of the trips
+    run (``trips``, () int64, advanced by the body itself)."""
+
+    def __init__(self, device):
+        self.trips = torch.zeros((), dtype=torch.int64, device=device)
+        self.per_trip: dict[str, int] = {}
+        self.lane_per_trip: dict[str, int] = {}
+        self.seen = 0          # trips already folded into LAUNCHES
+
+
+# launched loops whose trips LAUNCHES does not hold yet, by id; each entry
+# also keeps its loop (the owner of the graphs) alive until the device has
+# passed it, which the next host read guarantees
+_UNSETTLED: dict[int, tuple[TripCount, object]] = {}
+
+
+def defer_launches(count: TripCount, owner: object) -> None:
+    """Count ``count``'s trips at the next host read."""
+    _UNSETTLED[id(count)] = (count, owner)
+
+
+def unsettled(device) -> list[TripCount]:
+    """The trip counters on ``device`` whose launches are not counted yet."""
+    return [c for c, _ in _UNSETTLED.values() if c.trips.device == device]
+
+
+def settle_launches(counts: list[TripCount], trips: list[int]) -> None:
+    """Fold ``counts`` into LAUNCHES, given their device counters' values
+    (read by the caller, in one transfer with whatever it reads)."""
+    for c, n in zip(counts, trips):
+        new, c.seen = n - c.seen, n
+        for k, m in c.per_trip.items():
+            LAUNCHES[k] += new * m
+        for k, m in c.lane_per_trip.items():
+            LANE_LAUNCHES[k] += new * m
+        _UNSETTLED.pop(id(c), None)
+
+
 def reset_launches() -> None:
+    """Zero the counts, once the trips still unsettled are read."""
+    counts = [c for c, _ in _UNSETTLED.values()]
+    if counts:
+        settle_launches(counts, [int(c.trips) for c in counts])
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in LANE_LAUNCHES:
         LANE_LAUNCHES[k] = 0
 
 

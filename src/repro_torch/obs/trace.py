@@ -3,10 +3,9 @@
 Three granularities, one :class:`Tracer`:
 
 * **run-level** — :class:`RunTraceHook` brackets a whole ``run_engine``
-  call in one span (``on_start`` / ``on_exit`` only).  The reference hands
-  it to its ``device_loop=True`` runs, which have no host boundary between
-  steps; :func:`trace_hooks` keeps that choice, though every run of the
-  port is host-driven.
+  call in one span (``on_start`` / ``on_exit`` only): the one granularity
+  a ``device_loop=True`` run has, since the whole loop runs on the device
+  with no host boundary between steps (:func:`trace_hooks` picks it).
 * **superstep-level** — :class:`TraceHook` records one span per executor
   step with the counter deltas and the exchange bytes the step is about
   to put on the wire.  Works on every run path (``run_engine`` with any
@@ -287,8 +286,7 @@ def trace_hooks(tracer: Tracer | None, device_loop: bool = False,
     """The hooks a run should carry for ``tracer``: ``()`` when tracing is
     off (the disabled path adds zero hooks, zero work), a stepwise
     :class:`TraceHook` by default, a :class:`RunTraceHook` with
-    ``device_loop=True`` (the reference's signature: its device loops
-    reject stepwise hooks)."""
+    ``device_loop=True`` (a device loop rejects stepwise hooks)."""
     if tracer is None or not tracer.enabled:
         return ()
     if device_loop:
@@ -445,6 +443,7 @@ def phased_run(graph, prog, engine: str = "hybrid", vdata: Any = None, *,
     (:func:`repro_torch.core.runtime.exchange`).
     """
     from repro_torch.core.runtime import quiescent
+    from repro_torch.exec.device_loop import graph_cache
     from repro_torch.exec.policy import make_policy
     from repro_torch.exec.syncs import host_read
 
@@ -458,6 +457,7 @@ def phased_run(graph, prog, engine: str = "hybrid", vdata: Any = None, *,
     es = policy.init(graph, prog, vdata)
     records: list[SuperstepRecord] = []
     step = 0
+    graphs: dict = {}       # the run's local-phase graph, built once
     while step < max_iters and not host_read(quiescent(prog, es)):
         step += 1
         xb = exchange_bytes(graph, es, wire_dtype)
@@ -466,7 +466,8 @@ def phased_run(graph, prog, engine: str = "hybrid", vdata: Any = None, *,
         t_start = clock.perf_counter()
         for name, fn in phases:
             t0 = clock.perf_counter()
-            es = fn(es)
+            with graph_cache(graphs):
+                es = fn(es)
             _wait(es.send)
             secs[name] = clock.perf_counter() - t0
             if tracer is not None:

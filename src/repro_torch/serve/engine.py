@@ -17,18 +17,21 @@ tensor through ``vdata={"sources": ...}``, so one entry serves every
 source set; padding the batch up to the nearest width in ``lane_widths``
 keeps the set of entries fixed.  ``trace_counts`` counts the entries
 built per (program, K) — the reference counts its ``jax.jit`` traces
-there; the port has no jit, and no CUDA-graph capture either (the hybrid
-step reads the host inside its local loop), so every dispatch steps the
-hybrid policy directly.
+there; the port has no jit.
 
 Two dispatch modes:
 
-* :meth:`run` — drain the queue; each batch is one host-driven run to
-  quiescence.  Straggler handling reuses
-  :class:`repro_torch.ft.straggler.StragglerMitigator`: every batch is
-  issued against a deadline, overdue batches are re-dispatched to the next
-  replica slot, and duplicate completions are suppressed (first result
-  wins by work id).
+* :meth:`run` — drain the queue; each batch is one device-resident run to
+  quiescence (:func:`repro_torch.exec.driver.while_engine`: on the card
+  one CUDA graph whose WHILE node iterates the hybrid step, built once per
+  (program, K) entry and drain and replayed, after the batch's sources
+  are copied in, by the drain's next batches of that entry; one host read
+  at the end), or, with a checkpoint
+  directory, a host-stepped run with the checkpoint hook.  Straggler
+  handling reuses :class:`repro_torch.ft.straggler.StragglerMitigator`:
+  every batch is issued against a deadline, overdue batches are
+  re-dispatched to the next replica slot, and duplicate completions are
+  suppressed (first result wins by work id).
 * :meth:`stream` — yields each query as soon as ITS lane converges, while
   the rest of the batch keeps iterating.  A lane whose state is unchanged
   across one full global iteration is at its fixed point: any delivery
@@ -36,10 +39,11 @@ Two dispatch modes:
   and unchanged lanes emit only ⊕-identity payloads (per-lane send
   masking), so nothing new is in flight for them.
 
-Both modes compare a step's state with the state before it, which relies
-on the port's steps never writing a state tensor in place (pinned by the
-CPU tests).  The lane-convergence masks and ``quiescent`` flags are host
-reads counted by :mod:`repro_torch.exec.syncs`.
+:meth:`stream` and the checkpointed runs' lane hook compare a step's
+state with the state before it, which relies on the port's steps never
+writing a state tensor in place (pinned by the CPU tests).  The
+lane-convergence masks and ``quiescent`` flags are host reads counted by
+:mod:`repro_torch.exec.syncs`.
 
 The port of ``repro.serve.engine``.
 """
@@ -63,9 +67,11 @@ from repro_torch.device import check_graph_device
 from repro_torch.exec.checkpoint import (CheckpointHook, checkpoint_key,
                                          drop_converged_lanes,
                                          require_monotone)
-from repro_torch.exec.driver import ExecContext, ExecHook, run_engine
+from repro_torch.exec.device_loop import graph_cache
+from repro_torch.exec.driver import (ExecContext, ExecHook, run_engine,
+                                     while_engine)
 from repro_torch.exec.policy import hybrid_policy
-from repro_torch.exec.syncs import host_read, host_read_mask
+from repro_torch.exec.syncs import host_read, host_read_int, host_read_mask
 from repro_torch.ft.straggler import StragglerMitigator
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.metrics import MetricsRegistry, save_registry
@@ -142,11 +148,14 @@ PROGRAMS: dict[str, _ProgramSpec] = {
 
 @dataclasses.dataclass(frozen=True)
 class _LaneProgram:
-    """One dispatch-cache entry: a (program, K) lane program and its
-    per-lane convergence test."""
+    """One dispatch-cache entry: a (program, K) lane program, its per-lane
+    convergence test, and the ``vdata`` its device-resident dispatches
+    read, whose (K,) ``sources`` each batch overwrites in place (so the
+    entry's loop graph serves every batch)."""
 
     prog: Any
     changed: Callable          # (prev state, state) -> (K,) bool tensor
+    vdata: dict
 
 
 class _LaneHook(ExecHook):
@@ -287,6 +296,8 @@ class ServeEngine:
         self._ids = itertools.count()        # monotonic: ids never collide
         self._work_ids = itertools.count()
         self._lanes: dict[tuple, _LaneProgram] = {}   # (key, K) -> entry
+        # (key, K) -> its loop graphs: the last entry's, within one drain
+        self._graphs: dict = {}
         self.trace_counts: dict[tuple, int] = {}   # entries built per (key, K)
         self.registry = registry if registry is not None else MetricsRegistry()
         self.stats_dir = stats_dir if stats_dir is not None else ckpt_dir
@@ -373,18 +384,32 @@ class ServeEngine:
                         (state[name] != prev[name]).reshape(-1, K), dim=0))
                 return ch
 
-            self._lanes[ck] = _LaneProgram(prog, changed)
+            sources = torch.zeros((K,), dtype=torch.int32, device=device)
+            self._lanes[ck] = _LaneProgram(prog, changed,
+                                           {"sources": sources})
         return self._lanes[ck]
 
     # -- dispatch ----------------------------------------------------------
 
     def _dispatch(self, key: tuple, K: int, sources, attempt: int):
-        """One K-lane run to quiescence (or the injected dispatch hook)."""
+        """One K-lane run to quiescence on the device (or the injected
+        dispatch hook), as the reference's jitted ``while_engine``."""
         if self._dispatch_fn is not None:
             return self._dispatch_fn(self, key, K, sources, attempt)
-        prog = self._lane_program(key, K).prog
-        return run_engine(self.graph, prog, self._policy,
-                          {"sources": sources}, max_iters=self.max_iters).es
+        ck = (key, K)
+        if ck not in self._graphs:
+            # the last entry's graphs only: a graph keeps its buffers and
+            # its memory pool on the card for as long as it is kept
+            self._graphs = {ck: {}}
+        lp = self._lane_program(key, K)
+        graph, policy, prog, vdata = self.graph, self._policy, lp.prog, \
+            lp.vdata
+        vdata["sources"].copy_(sources)
+        es = policy.init(graph, prog, vdata)
+        with graph_cache(self._graphs[ck]):
+            return while_engine(prog,
+                                lambda e: policy.step(graph, prog, e, vdata),
+                                es, self.max_iters)
 
     def _dispatch_checkpointed(self, key: tuple, K: int, sources):
         """One batch through the checkpointing executor: host-stepped with
@@ -411,7 +436,8 @@ class ServeEngine:
         try:
             ctx = run_engine(self.graph, prog, self._policy, vdata,
                              max_iters=self.max_iters, hooks=(lane, ckpt),
-                             es=es0)
+                             es=es0, jit_step=lambda e: self._policy.step(
+                                 self.graph, prog, e, vdata))
             killed = False
         finally:
             if killed:    # queued saves become durable for the resume
@@ -455,17 +481,21 @@ class ServeEngine:
         """Serve everything in the queue; returns the completed queries
         (each batch = one K-lane run to quiescence)."""
         done: list[Query] = []
-        for key, queries in self._take_batches():
-            K = self._pad_width(len(queries))
-            sources = self._sources(queries, K)
-            if self.ckpt_dir is not None:
-                es = self._dispatch_checkpointed(key, K, sources)
-            else:
-                es = self._dispatch_mitigated(key, K, sources)
-            spec = PROGRAMS[queries[0].program]
-            lanes = unpack_vertex(self.graph, es.state[spec.state_key])
-            self._finish(queries, lanes, int(es.counters.iterations))
-            done.extend(queries)
+        try:
+            for key, queries in self._take_batches():
+                K = self._pad_width(len(queries))
+                sources = self._sources(queries, K)
+                if self.ckpt_dir is not None:
+                    es = self._dispatch_checkpointed(key, K, sources)
+                else:
+                    es = self._dispatch_mitigated(key, K, sources)
+                spec = PROGRAMS[queries[0].program]
+                lanes = unpack_vertex(self.graph, es.state[spec.state_key])
+                self._finish(queries, lanes,
+                             host_read_int(es.counters.iterations))
+                done.extend(queries)
+        finally:
+            self._graphs = {}    # the drain's graphs leave the card with it
         self._persist_stats()
         return done
 
@@ -482,9 +512,11 @@ class ServeEngine:
             es = self._policy.init(self.graph, lp.prog, vdata)
             pending = {j: q for j, q in enumerate(queries)}
             it = 0
+            graphs: dict = {}    # the batch's local-phase graph, built once
             while pending and it < self.max_iters:
                 prev = es.state
-                es = self._policy.step(self.graph, lp.prog, es, vdata)
+                with graph_cache(graphs):
+                    es = self._policy.step(self.graph, lp.prog, es, vdata)
                 it += 1
                 if host_read(quiescent(lp.prog, es)):
                     lane_done = np.ones((K,), bool)

@@ -13,8 +13,8 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "src")
 
 # the graph I/O, checkpoint, fault-tolerance, observability, serving,
-# distributed, LM-substrate and sharding / launch modules: each must be
-# found by the walk below, and import clean like the rest
+# distributed, LM-substrate, sharding / launch and device-loop modules:
+# each must be found by the walk below, and import clean like the rest
 IO_FT_MODULES = (
     "repro_torch.obs", "repro_torch.obs.clock", "repro_torch.obs.metrics",
     "repro_torch.obs.export", "repro_torch.obs.trace",
@@ -44,6 +44,7 @@ IO_FT_MODULES = (
     "repro_torch.sharding.util", "repro_torch.sharding.fsdp",
     "repro_torch.launch", "repro_torch.launch.mesh",
     "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+    "repro_torch.exec.device_loop",
 )
 
 _PROBE = """
