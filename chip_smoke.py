@@ -1065,16 +1065,22 @@ def _same_nan(a, b):
     """Bit-identical outside NaNs, and NaN at the same positions.  NaN
     payloads are not compared: a kernel's select and torch's ops may carry
     different ones."""
+    return bool(_same_nan_flag(a, b))
+
+
+def _same_nan_flag(a, b):
+    """``_same_nan`` as a 0-d bool tensor on ``a``'s device, without a host
+    read, so a run of cases costs one."""
     import torch
     if isinstance(a, tuple):
-        return all(_same_nan(x, y) for x, y in zip(a, b))
+        return torch.stack([_same_nan_flag(x, y) for x, y in zip(a, b)]).all()
     if a.shape != b.shape:
-        return False
+        return torch.zeros((), dtype=torch.bool, device=a.device)
     if a.dtype == torch.bool:
-        return bool(torch.equal(a, b))
+        return (a == b).all()
     na, nb = torch.isnan(a), torch.isnan(b)
-    return bool(torch.equal(na, nb)) and \
-        bool(torch.equal(_bits(a)[~na], _bits(b)[~nb]))
+    same = torch.where(na, 0, _bits(a)) == torch.where(nb, 0, _bits(b))
+    return (na == nb).all() & same.all()
 
 
 # --------------------------------------------------------------------------
@@ -1088,13 +1094,16 @@ def _same_nan(a, b):
 # a ragged last fold block (300), the local hub bin's width, and 258 fold
 # blocks (more than the 256 a round holds, the last one slot wide).  Six
 # lanes take a second lane chunk of four; sixteen, the serving layer's
-# widest batch, four chunks.
-SWEEP_SPMV = ((7, 512, (0, 4, 16)), (8, 512, (0, 4, 16)),
-              (16, 512, (0, 4, 16)), (128, 512, (0, 4, 6, 16)),
+# widest batch, four chunks.  On the narrow bins (K < 128) 4, 16 and 64
+# lanes take the lane-chunk kernel (four lanes a thread; 64: two rows a
+# warp), 6 the thread-per-(row, lane) kernel, each also at the
+# SWEEP_LANE_OFFSETS.
+SWEEP_SPMV = ((7, 512, (0, 4, 6, 16, 64)), (8, 512, (0, 4, 6, 16, 64)),
+              (16, 512, (0, 4, 6, 16, 64)), (128, 512, (0, 4, 6, 16)),
               (128, 40000, (0, 4, 6, 16)), (300, 256, (0, 4, 6, 16)),
               (7056, 32, (0, 4, 6, 16)), (32897, 8, (0, 6, 16)))
 SWEEP_MIN_STEP = ((7, 512), (8, 512), (16, 512))
-SWEEP_MIN_STEP_LANES = (0, 4, 16)
+SWEEP_MIN_STEP_LANES = (0, 4, 6, 16, 64)
 # (K, rows, frontier lanes) of the pr_step tiles: the rows path
 # (K = 8 and 16 on an (N,) frontier, also over 600,001 rows: thousands of
 # warps of every fill) and the thread-per-(row, lane) path (K = 7 and 300 with its
@@ -1106,6 +1115,13 @@ SWEEP_PR_STEP = ((7, 517, (0, 4, 6, 16)), (8, 517, (0, 4, 6, 16)),
                  (16, 517, (0, 4, 6, 16)), (300, 517, (0, 4, 6, 16)),
                  (8, 600_001, (0,)), (16, 600_001, (0,)))
 SWEEP_OFFSETS = ("none", "row", "element")
+# (tile offset, frontier offset) of the narrow ell_spmv and the min_step
+# sweep cases: SWEEP_OFFSETS applied to both (a frontier one row in stays
+# 16-byte aligned at L % 4 == 0, one element in does not: the thread path),
+# and ``tile``, the tile alone one element in (the lane-chunk path with
+# its row loads unaligned)
+SWEEP_LANE_OFFSETS = {o: (o, o) for o in SWEEP_OFFSETS}
+SWEEP_LANE_OFFSETS["tile"] = ("element", "none")
 # from this width on the plain version of a sweep tile runs on the CPU: it
 # folds slot by slot, and on the card each slot's few ops cost a launch each
 SWEEP_HOST_REF_K = 1024
@@ -1152,12 +1168,13 @@ def _sweep_values(gen, shape, mode, zero=None, neg_rows=False):
 
 
 def _offset(t, how):
-    """``t`` copied into a larger buffer, one row (``row``) or one element
-    (``element``) from its start, or ``t`` itself (``none``)."""
+    """``t`` copied into a larger buffer, one row (``row``; an element of
+    a 1-D ``t``) or one element (``element``) from its start, or ``t``
+    itself (``none``)."""
     import torch
     if how == "none":
         return t
-    pad = t.shape[1] if how == "row" else 1
+    pad = t.shape[1] if how == "row" and t.dim() > 1 else 1
     buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=t.device)
     buf[pad:] = t.reshape(-1)
     return buf[pad:].view(t.shape)
@@ -1193,13 +1210,15 @@ def _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, offset):
 
 def phase_sweep():
     """Each kernel path against its plain version on synthetic tiles: every
-    semiring, (N,), (N, 4), (N, 6) and (N, 16) frontiers (``SWEEP_SPMV``,
-    ``SWEEP_MIN_STEP_LANES``, ``SWEEP_PR_STEP``), 1 %, 50 %, 100 %
-    occupancy and
-    all-padding blocks between occupied ones, signed zeros and ±inf ties;
-    ``pr_step`` also on tiles offset into a larger buffer
-    (``SWEEP_OFFSETS``).  Bit-identical, NaN by position only
-    (``_same_nan``)."""
+    semiring, (N,), (N, 4), (N, 6), (N, 16) and, on the narrow bins, (N,
+    64) frontiers (``SWEEP_SPMV``, ``SWEEP_MIN_STEP_LANES``,
+    ``SWEEP_PR_STEP``), 1 %, 50 %, 100 % occupancy and all-padding blocks
+    between occupied ones, signed zeros and ±inf ties; ``pr_step`` also on
+    tiles offset into a larger buffer (``SWEEP_OFFSETS``), the narrow
+    ``ell_spmv`` and ``min_step`` cases on tiles and frontiers offset so
+    (``SWEEP_LANE_OFFSETS``).  Bit-identical, NaN by position only
+    (``_same_nan``, each case's verdict kept on the card and all read at
+    the end)."""
     import torch
     from repro_torch.kernels.common import MONOTONE_SEMIRINGS, SEMIRINGS
     from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
@@ -1209,43 +1228,53 @@ def phase_sweep():
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     t = time.perf_counter()
-    n_cases, bad = 0, []
+    labels, flags = [], []
+
+    def check(label, got, want):
+        labels.append(label)
+        flags.append(_same_nan_flag(got, want).to("cuda"))
     # the zero that keeps a ⊗-product's sign that of the tile value
     keep_sign = {"add_mul": 0.0, "min_mul": 0.0, "max_min": 0.0,
                  "min_add": -0.0, "max_add": -0.0}
-    for k, rows, lanes, fill, mode in (
-            (k, r, L, f, m) for k, r, lane_set in SWEEP_SPMV
-            for L in lane_set for f in SWEEP_FILLS for m in ("zeros", "infs")):
+    for k, rows, lanes, fill, mode, offset in (
+            (k, r, L, f, m, o) for k, r, lane_set in SWEEP_SPMV
+            for L in lane_set for f in SWEEP_FILLS for m in ("zeros", "infs")
+            for o in (SWEEP_LANE_OFFSETS if k < 128 else ("none",))):
+        tile_off, front_off = SWEEP_LANE_OFFSETS[offset]
         idx, msk = _sweep_tile(gen, rows, k, fill, SWEEP_N)
         xshape = (SWEEP_N, lanes) if lanes else (SWEEP_N,)
         val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
+        idx, val, msk = (_offset(t, tile_off) for t in (idx, val, msk))
         on = "cpu" if k >= SWEEP_HOST_REF_K else "cuda"
         for sr in SEMIRINGS:
-            x = _sweep_values(gen, xshape, mode, keep_sign[sr])
+            x = _offset(_sweep_values(gen, xshape, mode, keep_sign[sr]),
+                        front_off)
             got = ell_spmv(idx, val, msk, x, semiring=sr).to(on)
             want = ell_spmv_ref(*(t.to(on) for t in (idx, val, msk, x)),
                                 semiring=sr)
-            n_cases += 1
-            if not _same_nan(got, want):
-                bad.append(f"ell_spmv K={k} {fill} {mode} L={lanes} {sr}")
-    for (k, rows), fill, mode, lanes in (
-            (kr, f, m, L) for kr in SWEEP_MIN_STEP for f in SWEEP_FILLS
-            for m in ("zeros", "infs") for L in SWEEP_MIN_STEP_LANES):
+            check(f"ell_spmv K={k} {fill} {mode} L={lanes} {sr} "
+                  f"offset={offset}", got, want)
+    for (k, rows), fill, mode, lanes, offset in (
+            (kr, f, m, L, o) for kr in SWEEP_MIN_STEP for f in SWEEP_FILLS
+            for m in ("zeros", "infs") for L in SWEEP_MIN_STEP_LANES
+            for o in SWEEP_LANE_OFFSETS):
+        tile_off, front_off = SWEEP_LANE_OFFSETS[offset]
         idx, msk = _sweep_tile(gen, rows, k, fill, rows)
         xshape = (rows, lanes) if lanes else (rows,)
         val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
+        idx, val, msk = (_offset(t, tile_off) for t in (idx, val, msk))
         for sr in sorted(MONOTONE_SEMIRINGS):
-            x = _sweep_values(gen, xshape, mode, keep_sign[sr])
-            xrow = _sweep_values(gen, xshape, mode)
-            extra = _sweep_values(gen, xshape, mode)
-            send = torch.rand(xshape, generator=gen, device="cuda") < 0.7
+            x, xrow, extra = (
+                _offset(_sweep_values(gen, xshape, mode, z), front_off)
+                for z in (keep_sign[sr], None, None))
+            send = _offset(torch.rand(xshape, generator=gen, device="cuda")
+                           < 0.7, front_off)
             got = fused_min_step(idx, val, msk, x, send, xrow, extra,
                                  semiring=sr)
             want = fused_min_step_ref(idx, val, msk, x, send, xrow, extra,
                                       semiring=sr)
-            n_cases += 1
-            if not _same_nan(got, want):
-                bad.append(f"min_step K={k} {fill} {mode} L={lanes} {sr}")
+            check(f"min_step K={k} {fill} {mode} L={lanes} {sr} "
+                  f"offset={offset}", got, want)
     for k, rows, lanes, fill, mode, offset in (
             (k, r, L, f, m, o) for k, r, lane_set in SWEEP_PR_STEP
             for L in lane_set for f in SWEEP_FILLS for m in ("zeros", "infs")
@@ -1253,11 +1282,10 @@ def phase_sweep():
         ops = _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, offset)
         got = fused_pr_step(*ops)
         want = fused_pr_step_ref(*ops)
-        n_cases += 1
-        if not _same_nan(got, want):
-            bad.append(f"pr_step K={k} rows={rows} {fill} {mode} L={lanes} "
-                       f"offset={offset}")
-    sync()
+        check(f"pr_step K={k} rows={rows} {fill} {mode} L={lanes} "
+              f"offset={offset}", got, want)
+    n_cases = len(labels)
+    bad = [b for b, ok in zip(labels, torch.stack(flags).tolist()) if not ok]
     say("sweep", cases=n_cases, failed=len(bad),
         seconds=f"{time.perf_counter() - t:.1f}")
     if bad:
@@ -1457,25 +1485,27 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
                 if app == "pagerank" and edges == "local" and not s.dense:
                     timed["ell_spmv"] = row
 
-    # --- the serving shapes: (N, 16) frontiers on the base bins ----------
-    L = SERVE_LANES
+    # --- the serving shapes: (N, 4) and (N, 16) frontiers on the base
+    # bins (the lane-chunk paths) ------------------------------------------
     s = sssp_graph.local_ell[0]
     _, idx, msk = slice_flat(s, sssp_graph, sssp_graph.n_partitions)
     val = s.val.reshape(-1, s.kb)
-    xl = torch.rand((idx.shape[0], L), generator=gen, device="cuda") * 100
-    sl = rand_send(xl.shape)
-    timed["min_step_L16"] = case(
-        "min_step", f"sssp local base {tuple(idx.shape)}, L={L}",
-        fused_min_step, (idx, val, msk, xl, sl, xl,
-                         torch.full_like(xl, float("inf"))),
-        fused_min_step_ref,
-        _bound_ms(msk, idx, 17 * L, 2, flag=sl, x_is_row=True, lanes=L))
-    timed["ell_spmv_L16_grid"] = case(
-        "ell_spmv", f"sssp local base {tuple(idx.shape)}, L={L}",
-        lambda *a: ell_spmv(*a, semiring="min_add"), (idx, val, msk, xl),
-        lambda *a: ell_spmv_ref(*a, semiring="min_add"),
-        _bound_ms(msk, idx, 4 * L, 2, lanes=L))
-    del xl, sl
+    for L in (SERVE_WIDTHS[1], SERVE_LANES):
+        xl = torch.rand((idx.shape[0], L), generator=gen, device="cuda") * 100
+        sl = rand_send(xl.shape)
+        timed[f"min_step_L{L}"] = case(
+            "min_step", f"sssp local base {tuple(idx.shape)}, L={L}",
+            fused_min_step, (idx, val, msk, xl, sl, xl,
+                             torch.full_like(xl, float("inf"))),
+            fused_min_step_ref,
+            _bound_ms(msk, idx, 17 * L, 2, flag=sl, x_is_row=True, lanes=L))
+        timed[f"ell_spmv_L{L}_grid"] = case(
+            "ell_spmv", f"sssp local base {tuple(idx.shape)}, L={L}",
+            lambda *a: ell_spmv(*a, semiring="min_add"), (idx, val, msk, xl),
+            lambda *a: ell_spmv_ref(*a, semiring="min_add"),
+            _bound_ms(msk, idx, 4 * L, 2, lanes=L))
+        del xl, sl
+    L = SERVE_LANES
     s = pr_graph.local_ell[0]
     _, idx, msk = slice_flat(s, pr_graph, pr_graph.n_partitions)
     val = pr_prog.ell_edge_values(pr_prog.channels[0], s.val).reshape(

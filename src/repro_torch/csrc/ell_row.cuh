@@ -1,12 +1,14 @@
 // One sliced-ELL row in registers, for the kernels that give each thread one
-// (row, lane) output: the narrow bins of `ell_spmv` (K = 8, 16) and the
-// `min_step` base bin.
+// (row, lane) output, or four lanes of one row (the lane-chunk path, below):
+// the narrow bins of `ell_spmv` (K = 8, 16) and the `min_step` base bin.
 //
 // A thread has its row's mask and the idx (and, unless its slot functor
 // reads only some, val) of its occupied slots in registers before it
 // touches the frontier.  Two ways in:
-// * StagedRows (one lane, K = 8 or 16, aligned tiles): a warp's 32 rows are
-//   one contiguous span of each tile, loaded coalesced into shared memory,
+// * StagedRows (K = 8 or 16, aligned tiles, a warp of whole rows: one lane,
+//   or L / 4 chunk threads a row with L / 4 dividing 32): a warp's 32 (or
+//   32 / (L/4)) rows are one contiguous span of each tile, loaded coalesced
+//   into shared memory,
 //   with streaming loads (`__ldcs`: each tile byte is read once, L2 is
 //   kept for the gathered frontier); each thread then takes its own row
 //   from there.  What is staged follows the bin's density and what the
@@ -24,6 +26,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "semiring.cuh"
 
@@ -114,10 +118,35 @@ struct Slots {
     }
   }
 
+  // idx only, of the 4-slot chunks that hold an occupied slot; val is
+  // left to the slot functor (v_later).
+  __device__ __forceinline__ void load_idx(const int* ip, const float* vp) {
+    v_later = vp;
+    if constexpr (C % 4 == 0) {
+      if (aligned(ip, 16)) {
+#pragma unroll
+        for (int q = 0; q < C / 4; ++q) {
+          int4 a = make_int4(0, 0, 0, 0);
+          if (m[4 * q] | m[4 * q + 1] | m[4 * q + 2] | m[4 * q + 3])
+            a = __ldg(reinterpret_cast<const int4*>(ip) + q);
+          i[4 * q] = a.x; i[4 * q + 1] = a.y; i[4 * q + 2] = a.z; i[4 * q + 3] = a.w;
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) i[j] = m[j] ? __ldg(ip + j) : 0;
+  }
+
+  // LazyVal: val is left to the slot functor (load_idx).
+  template <bool LazyVal = false>
   __device__ __forceinline__ void load(const int* ip, const float* vp,
                                        const unsigned char* mp) {
     load_mask(mp);
-    load_occupied(ip, vp);
+    if constexpr (LazyVal)
+      load_idx(ip, vp);
+    else
+      load_occupied(ip, vp);
   }
 
   // Row t of a warp's staged rows (StagedRows<C>).  `dense`: its idx
@@ -157,14 +186,21 @@ enum StageMode {
   // for some occupied slots loads those chunks itself (`min_step` reads
   // val only where the source's send flag is set).
   kStageMaskIdx,
+  // Mask, idx and val at once, in one round of loads: where the frontier
+  // and output bytes of several lanes outweigh the tile's, waiting on the
+  // mask before idx and val costs more than their unoccupied sectors
+  // (`ell_spmv`'s lane chunks: 0.39 against 0.44 ms adaptive at L = 16 on
+  // the grid's base bin, `tools/ab_lanes.py`).
+  kStageAll,
 };
 
-// The 32 rows of one warp, staged in shared memory.  Where a thread owns
-// one row (lanes == 1) and K is 8 or 16 with 16-byte aligned idx/val and
-// 4-byte aligned mask rows, a warp's rows are one contiguous span of each
-// tile: its lanes load the span coalesced, 16 bytes each (4 for the mask),
-// and each thread then takes its own row from shared memory.  Per-thread
-// loads of whole rows would stride the warp by the row length.
+// The rows of one warp (up to 32), staged in shared memory.  Where a
+// thread owns one row (lanes == 1), or a warp holds whole rows of 4-lane
+// chunks, and K is 8 or 16 with 16-byte aligned idx/val and 4-byte aligned
+// mask rows, a warp's rows are one contiguous span of each tile: its lanes
+// load the span coalesced, 16 bytes each (4 for the mask), and each thread
+// then takes its own row from shared memory.  Per-thread loads of whole
+// rows would stride the warp by the row length.
 template <int KT>
 struct StagedRows {
   static constexpr int Q = KT / 4;
@@ -184,13 +220,14 @@ struct StagedRows {
     const unsigned* gm = reinterpret_cast<const unsigned*>(msk + at);
     const int4* gi = reinterpret_cast<const int4*>(idx + at);
     const float4* gv = reinterpret_cast<const float4*>(val + at);
-    if constexpr (Mode == kStageMaskIdx) {
+    if constexpr (Mode != kStageAdaptive) {
 #pragma unroll
       for (int u = 0; u < Q; ++u) {
         const int q = lane + 32 * u;
         if (q < n4) {
           m[q] = __ldcs(gm + q);
           i[q] = __ldcs(gi + q);
+          if constexpr (Mode == kStageAll) v[q] = __ldcs(gv + q);
         }
       }
       __syncwarp();
@@ -298,6 +335,143 @@ __device__ __forceinline__ float fold_staged_row(const StagedRows<KT>& st, int t
 #pragma unroll
   for (int j = 1; j < KT; ++j) acc = SR::combine(acc, o[j]);
   return acc;
+}
+
+// ------------------------------------------------ (N, L) lane chunks --
+//
+// Where L % 4 == 0 and the frontier's float operands are 16-byte aligned
+// (its bool ones 4-byte aligned), a thread owns four consecutive lanes of
+// one row: a block of (cpr, 256 / cpr) threads, cpr = L / 4 chunks a row
+// (at most 256: wider rows take more blocks along y), so a warp holds
+// consecutive (row, chunk) pairs, 32 / cpr whole rows where cpr divides 32,
+// and no thread divides by a runtime value.  The thread reads its row's
+// mask and idx once for its four lanes, gathers each occupied slot's four
+// frontier values as one 16-byte load, and folds four independent chains
+// in registers, each in the reference's order.  Its row loads come from
+// L1, or, up to kStageChunksMax chunks a row with K = 8 or 16 and aligned
+// tiles, from the warp's rows staged in shared memory (StagedRows, 32 /
+// cpr rows a warp).
+
+// The lane-chunk path is taken wherever it applies (false: every (N, L)
+// launch takes the thread-per-(row, lane) kernel).
+constexpr bool kLaneChunks = true;
+// Chunks a row up to which a lane-chunk launch stages its rows.
+constexpr int kStageChunksMax = 32;
+
+// L % 4 == 0, every pointer of `vec16` 16-byte aligned and of `vec4`
+// 4-byte aligned.
+inline bool lane_chunks_apply(int lanes,
+                              std::initializer_list<const void*> vec16,
+                              std::initializer_list<const void*> vec4 = {}) {
+  if (!kLaneChunks || lanes < 4 || lanes % 4 != 0) return false;
+  for (const void* p : vec16)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  for (const void* p : vec4)
+    if (reinterpret_cast<uintptr_t>(p) & 3) return false;
+  return true;
+}
+
+// A lane-chunk launch stages its rows: K = 8 or 16, aligned tiles, and a
+// power of two of at most kStageChunksMax chunks a row (whole rows a warp).
+template <int KT>
+inline bool lane_chunks_stage(int lanes, const void* idx, const void* val,
+                              const void* msk) {
+  const int cpr = lanes / 4;
+  return can_stage<KT>(idx, val, msk, 1) && cpr <= kStageChunksMax &&
+         (cpr & (cpr - 1)) == 0;
+}
+
+// Block and grid of a lane-chunk launch over `rows` rows.
+struct LaneChunkGrid {
+  dim3 block, grid;
+  LaneChunkGrid(long long rows, int lanes) {
+    const int cpr = lanes / 4;
+    const int cx = cpr < kThreads ? cpr : kThreads;
+    const int ry = kThreads / cx;
+    block = dim3(cx, ry);
+    grid = dim3(static_cast<unsigned>((rows + ry - 1) / ry),
+                static_cast<unsigned>((cpr + cx - 1) / cx));
+  }
+};
+
+// Four ⊕ chains over C slots' values o[j][c], slot order.
+template <int S, int C>
+__device__ __forceinline__ void fold_slots4(const float (&o)[C][4],
+                                            float (&acc)[4]) {
+  using SR = Semiring<S>;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    acc[c] = o[0][c];
+#pragma unroll
+    for (int j = 1; j < C; ++j) acc[c] = SR::combine(acc[c], o[j][c]);
+  }
+}
+
+// fold_row for four lanes at once: `slot_values(s, out)` fills out[j][c]
+// with slot j's operand of lane c.  LazyVal: val is left to the functor
+// (Slots::load_idx).
+template <int S, int KT, bool LazyVal, class SlotFn>
+__device__ __forceinline__ void fold_row4(const int* ri, const float* rv,
+                                          const unsigned char* rm, int k_slots,
+                                          const SlotFn& slot_values,
+                                          float (&acc)[4]) {
+  using SR = Semiring<S>;
+  if constexpr (KT > 0) {
+    Slots<KT> s;
+    s.template load<LazyVal>(ri, rv, rm);
+    float o[KT][4];
+    slot_values(s, o);
+    fold_slots4<S, KT>(o, acc);
+  } else {
+    const int bk = k_slots < kFold ? k_slots : kFold;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] = SR::ident();
+    for (int k0 = 0; k0 < k_slots; k0 += bk) {
+      const int end = min(k0 + bk, k_slots);
+      float part[4];
+      int k = k0;
+      for (; k + 4 <= end; k += 4) {
+        Slots<4> s;
+        s.template load<LazyVal>(ri + k, rv + k, rm + k);
+        float o[4][4];
+        slot_values(s, o);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            part[c] = (k == k0 && j == 0) ? o[0][c] : SR::combine(part[c], o[j][c]);
+      }
+      for (; k < end; ++k) {
+        Slots<1> s;
+        s.template load<LazyVal>(ri + k, rv + k, rm + k);
+        float o[1][4];
+        slot_values(s, o);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          part[c] = (k == k0) ? o[0][c] : SR::combine(part[c], o[0][c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // a ragged last block's pad slots: one ⊕ identity (fold_row)
+        if (k0 + bk > k_slots) part[c] = SR::combine(part[c], SR::ident());
+        acc[c] = (k0 == 0) ? part[c] : SR::combine(acc[c], part[c]);
+      }
+    }
+  }
+}
+
+// fold_staged_row for four lanes at once.
+template <int S, int KT, class SlotFn>
+__device__ __forceinline__ void fold_staged_row4(const StagedRows<KT>& st, int t,
+                                                 bool dense, bool val_staged,
+                                                 const int* ip, const float* vp,
+                                                 const SlotFn& slot_values,
+                                                 float (&acc)[4]) {
+  Slots<KT> s;
+  s.load_staged(st, t, dense, val_staged, ip, vp);
+  float o[KT][4];
+  slot_values(s, o);
+  fold_slots4<S, KT>(o, acc);
 }
 
 // Offsets in 32 bits when every index of the launch fits, else 64.

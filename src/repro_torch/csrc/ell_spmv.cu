@@ -21,16 +21,35 @@
 // Two paths, chosen by K in the C entry, one launch either way:
 //
 // * Narrow bins (K < 128: the base bins, K = 8 and 16 on the main path).
-//   One thread per (row, lane); K is a template parameter (8, 16, else a
-//   loop over 4-slot chunks).  With one lane and aligned tiles, a warp's
-//   32 rows are one contiguous span of idx/val/mask: the warp loads its
-//   mask coalesced into shared memory, and idx/val too where at least half
-//   of their 32-byte sectors hold an occupied slot; otherwise each thread
+//   One thread per row of an (N,) frontier; K is a template parameter (8,
+//   16, else a loop over 4-slot chunks).  With aligned tiles, a warp's 32
+//   rows are one contiguous span of idx/val/mask: the warp loads its mask
+//   coalesced into shared memory, and idx/val too where at least half of
+//   their 32-byte sectors hold an occupied slot; otherwise each thread
 //   loads the 4-slot chunks of its row that hold one, by 16-byte vector
-//   loads (the sparse remote and PageRank base bins).  Then all gathers are issued, and the fold runs in
-//   registers (`ell_row.cuh`).  32-bit offsets when they fit; no division
-//   for a single lane.  Masked slots fold in as the ⊕ identity, exactly as
-//   the reference's chain does.
+//   loads (the sparse remote and PageRank base bins).  Then all gathers
+//   are issued, and the fold runs in registers (`ell_row.cuh`).  32-bit
+//   offsets when they fit.  Masked slots fold in as the ⊕ identity,
+//   exactly as the reference's chain does.
+//   (N, L) frontiers (serving's K-lane batches, PPR).  Bound: L × the
+//   frontier and output bytes — on the SSSP grid's base bin at L = 16,
+//   704 MB, 0.2102 ms.  The first design gave each thread one (row, lane):
+//   each of a row's L threads loaded the same mask, idx and val again and
+//   gathered one float a slot, bound by issued loads (0.9270 ms there).
+//   Lane-chunk path, where L % 4 == 0 and x and y are 16-byte aligned: a
+//   thread owns four consecutive lanes of one row (block (L/4, 1024/L),
+//   no runtime division); its row's mask, idx and val come once for the
+//   four lanes, staged per warp (32 / (L/4) rows a warp), all three in one
+//   round of loads, where K is 8 or 16 with aligned tiles and L/4 a power
+//   of two up to 32, else from L1; an occupied slot's four x values are
+//   one 16-byte load (at L = 16 the four threads of a row read one 64-byte
+//   segment); four independent fold chains in registers, each in the
+//   reference's order; one 16-byte store.  Measured on the H100
+//   (`tools/ab_lanes.py`), grid base bin at L = 16: 0.39 ms staged in one
+//   round, 0.43 from L1, 0.44 staged mask first (kStageAdaptive); launch
+//   bounds for more resident warps gained nothing on top.  Any other L
+//   (3, 6) or a misaligned view keeps the thread-per-(row, lane) kernel,
+//   bit-identical too.
 //
 // * Wide bins (K ≥ 128: every spill bin).  The work is split by (row,
 //   128-slot fold block).  In a fold block a warp reads the 128 mask bytes
@@ -148,6 +167,69 @@ __global__ void ell_narrow_staged_kernel(const int* __restrict__ idx,
   const int at = (r0 + lane) * KT;
   y[r0 + lane] = fold_staged_row<S, KT>(st, lane, dense, true, idx + at,
                                         val + at, SpmvSlots<S, int>{x, 1, 0});
+}
+
+// Four lanes l0 .. l0+3 of one row (the lane-chunk path, ell_row.cuh): an
+// occupied slot's four x values as one 16-byte load.
+template <int S, typename I>
+struct SpmvLanes {
+  const float* x;
+  int lanes;
+  int l0;
+
+  template <int C>
+  __device__ __forceinline__ void operator()(const Slots<C>& s, float (&o)[C][4]) const {
+    using SR = Semiring<S>;
+    float4 g[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      g[j] = s.m[j] ? __ldg(reinterpret_cast<const float4*>(
+                          x + static_cast<I>(s.i[j]) * lanes + l0))
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      o[j][0] = s.m[j] ? SR::times(s.v[j], g[j].x) : SR::ident();
+      o[j][1] = s.m[j] ? SR::times(s.v[j], g[j].y) : SR::ident();
+      o[j][2] = s.m[j] ? SR::times(s.v[j], g[j].z) : SR::ident();
+      o[j][3] = s.m[j] ? SR::times(s.v[j], g[j].w) : SR::ident();
+    }
+  }
+};
+
+// (N, L) frontiers, L % 4 == 0, 16-byte aligned x and y: one thread per
+// (row, 4-lane chunk), block (cpr, 256 / cpr) (ell_row.cuh).  Staged: K =
+// 8 or 16 and a warp's 32 / cpr rows staged in shared memory, mask, idx
+// and val in one round (kStageAll).
+template <int S, int KT, bool Staged, typename I>
+__global__ void __launch_bounds__(kThreads)
+ell_lanes_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                 const unsigned char* __restrict__ msk,
+                 const float* __restrict__ x, float* __restrict__ y, I rows,
+                 int k_slots, int lanes) {
+  const I r = static_cast<I>(blockIdx.x) * blockDim.y + threadIdx.y;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  const int l0 = 4 * c;
+  const SpmvLanes<S, I> terms{x, lanes, l0};
+  float acc[4];
+  if constexpr (Staged) {
+    __shared__ StagedRows<KT> staged[kThreads / 32];
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int wrows = 32 / blockDim.x;                   // whole rows a warp
+    const int r0 = static_cast<int>(r) - (threadIdx.y & (wrows - 1));
+    const int nrow = min(wrows, static_cast<int>(rows) - r0);
+    if (nrow <= 0) return;                               // warp-uniform
+    StagedRows<KT>& st = staged[tid >> 5];
+    st.template load<kStageAll>(idx, val, msk, r0, nrow, tid & 31);
+    if (r >= rows) return;
+    fold_staged_row4<S, KT>(st, threadIdx.y & (wrows - 1), true, true,
+                            idx + r * KT, val + r * KT, terms, acc);
+  } else {
+    if (r >= rows || l0 >= lanes) return;
+    const I base = r * k_slots;
+    fold_row4<S, KT, false>(idx + base, val + base, msk + base, k_slots, terms, acc);
+  }
+  __stcs(reinterpret_cast<float4*>(y + r * lanes + l0),
+         make_float4(acc[0], acc[1], acc[2], acc[3]));
 }
 
 // ------------------------------------------------------------------ wide --
@@ -429,6 +511,16 @@ void launch_narrow(const int* idx, const float* val, const unsigned char* msk,
           idx, val, msk, x, y, static_cast<int>(rows));
       return;
     }
+  }
+  if (lane_chunks_apply(lanes, {x, y})) {
+    const LaneChunkGrid lg(rows, lanes);
+    constexpr bool can = KT > 0 && sizeof(I) == 4;
+    const bool staged = can && lane_chunks_stage<KT>(lanes, idx, val, msk);
+    auto kernel = staged ? ell_lanes_kernel<S, KT, can, I>
+                         : ell_lanes_kernel<S, KT, false, I>;
+    kernel<<<lg.grid, lg.block, 0, stream>>>(idx, val, msk, x, y,
+                                             static_cast<I>(rows), k_slots, lanes);
+    return;
   }
   ell_narrow_kernel<S, KT, I><<<grid_for(rows * lanes), kThreads, 0, stream>>>(
       idx, val, msk, x, y, static_cast<I>(rows), k_slots, lanes);

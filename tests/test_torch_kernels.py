@@ -21,28 +21,50 @@ change a bit), and a separate test holds each lane column of the port,
 with arbitrary inputs, bit-equal to the reference's single-lane dispatch —
 the lane contract the reference documents.
 
+``ell_spmv`` and ``min_step`` are also held at L = 4 and 16, the widths
+their lane-chunk CUDA path takes (the serving batches' K).
+
 The CUDA kernels against their plain versions need a GPU: those tests are
 marked ``gpu`` and skip here (``chip_smoke.py`` covers them on the card).
+The reference is imported inside the tests, so the ``gpu`` cases collect
+on a machine without JAX.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.ell_spmv import ell_spmv as jax_ell_spmv
-from repro.kernels.ell_spmv import to_ell as jax_to_ell
-from repro.kernels.min_step import fused_min_step as jax_min_step
-from repro.kernels.pr_step import fused_pr_step as jax_pr_step
-
-from repro_torch.kernels.common import LAUNCHES, SEMIRINGS
+from repro_torch.kernels.common import LANE_LAUNCHES, LAUNCHES, SEMIRINGS
 from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref, to_ell
 from repro_torch.kernels.min_step import fused_min_step, fused_min_step_ref
 from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
+
+def jax_ell_spmv(*args, **kw):
+    from repro.kernels.ell_spmv import ell_spmv as fn
+    return fn(*args, **kw)
+
+
+def jax_to_ell(*args, **kw):
+    from repro.kernels.ell_spmv import to_ell as fn
+    return fn(*args, **kw)
+
+
+def jax_min_step(*args, **kw):
+    from repro.kernels.min_step import fused_min_step as fn
+    return fn(*args, **kw)
+
+
+def jax_pr_step(*args, **kw):
+    from repro.kernels.pr_step import fused_pr_step as fn
+    return fn(*args, **kw)
+
 
 ALL = ("add_mul", "min_add", "max_add", "min_mul", "max_min")
 MONO = ("min_add", "max_add", "min_mul", "max_min")
 KS = (8, 128, 136, 300)
 LANES = (0, 3)
+# ell_spmv and min_step also at the lane-chunk path's widths
+CHUNK_LANES = LANES + (4, 16)
 R = 24          # rows; frontier N = R so the fused kernels' xrow defaults hold
 
 
@@ -160,7 +182,7 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("lanes", CHUNK_LANES)
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("semiring", ALL)
 def test_ell_spmv_matches_pallas(semiring, k, lanes):
@@ -171,7 +193,7 @@ def test_ell_spmv_matches_pallas(semiring, k, lanes):
     _bits_equal(want, got)
 
 
-@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("lanes", CHUNK_LANES)
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("semiring", MONO)
 def test_min_step_matches_pallas(semiring, k, lanes):
@@ -227,7 +249,7 @@ def test_lane_columns_match_single_lane_pallas(kernel, k):
         _bits_equal(want, torch.from_numpy(np.ascontiguousarray(got[:, j])))
 
 
-@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("lanes", LANES + (16,))
 @pytest.mark.parametrize("k", SPECIAL_KS)
 @pytest.mark.parametrize("case", SPECIAL)
 @pytest.mark.parametrize("semiring", ALL)
@@ -239,7 +261,7 @@ def test_ell_spmv_special_values_match_pallas(semiring, case, k, lanes):
     _bits_equal(want, got)
 
 
-@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("lanes", LANES + (16,))
 @pytest.mark.parametrize("k", SPECIAL_KS)
 @pytest.mark.parametrize("case", SPECIAL)
 @pytest.mark.parametrize("semiring", MONO)
@@ -352,19 +374,59 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             ell_spmv(idx, val, msk, x)
 
 
+# the gpu test's frontier widths: (N,), the thread-per-(row, lane) path
+# (3, 6) and the lane-chunk path (4, 16, 64)
+GPU_LANES = (0, 3, 4, 6, 16, 64)
+
+
+def _element_off(t):
+    """``t`` copied into a buffer one element larger, viewed from its
+    second element: contiguous, but its data 4 (or 1) bytes off the
+    allocation's alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def _kernel_names(fn, want):
+    """Names of the CUDA kernels ``fn()`` launched (``torch.profiler``),
+    over up to three sessions, until each name of ``want`` is a substring
+    of one: now and then a session's device records are lost whole (only
+    the host's runtime calls come back; H100, torch 2.11), which can hide
+    a kernel but never show one that did not run.  Returns the names and
+    the number of sessions (each called ``fn`` once)."""
+    from torch.profiler import ProfilerActivity, profile
+    names = set()
+    for n in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names |= {e.key for e in prof.key_averages()}
+        if all(any(w in k for k in names) for w in want):
+            break
+    return names, n
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("lanes", LANES)
-def test_cuda_kernels_match_plain_versions(lanes):
+@pytest.mark.parametrize("offset", ["none", "element"])
+@pytest.mark.parametrize("lanes", GPU_LANES)
+def test_cuda_kernels_match_plain_versions(lanes, offset):
     """On the card: each kernel bit-identical to its plain version on the
     same CUDA tensors, and each launch counted.  ``pr_step`` also on the
     unsent-special-val inputs at K = 8 and 16, whose fresh (aligned) tiles
     take the rows path with an (N,) frontier and the thread path with
-    lanes (NaN by position, as on the CPU)."""
+    lanes (NaN by position, as on the CPU).  ``ell_spmv`` and ``min_step``
+    also at K = 7, 8 and 16, the narrow bins: with L % 4 == 0 and an
+    aligned frontier they launch the lane-chunk kernels, with any other L
+    or a frontier one element off alignment (``offset``) the
+    thread-per-(row, lane) kernels (checked by kernel name)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
+    front = _element_off if offset == "element" else (lambda t: t)
     idx, val, msk, x, send, row = (t.cuda() for t in
                                    _t(*_inputs(9, 136, lanes)))
-    before = dict(LAUNCHES)
+    x, send, row = front(x), front(send), front(row)
+    before, lane_before = dict(LAUNCHES), dict(LANE_LAUNCHES)
     for sr in ALL:
         _bits_equal(ell_spmv_ref(idx, val, msk, x, semiring=sr).cpu().numpy(),
                     ell_spmv(idx, val, msk, x, semiring=sr).cpu())
@@ -383,13 +445,54 @@ def test_cuda_kernels_match_plain_versions(lanes):
     for k in (8, 16):
         idx, val, msk, x, send, row = (t.cuda() for t in _t(
             *_special_inputs(700 + k, k, lanes, "unsent_special_val")))
-        extra = row.flip(0).contiguous()
+        x, send, row = front(x), front(send), front(row)
+        extra = front(row.flip(0).contiguous())
         want = fused_pr_step_ref(idx, val, msk, x, send, row, extra,
                                  damping=0.75, tol=1e-3)
         got = fused_pr_step(idx, val, msk, x, send, row, extra,
                             damping=0.75, tol=1e-3)
         for w, g in zip(want, got):
             _bits_equal_nan(w.cpu().numpy(), g.cpu())
-    assert LAUNCHES["ell_spmv"] == before["ell_spmv"] + len(ALL)
-    assert LAUNCHES["min_step"] == before["min_step"] + len(MONO)
+    narrow = (7, 8, 16)
+    chunks = lanes % 4 == 0 and lanes > 0 and offset == "none"
+    lane_kernels = ("ell_lanes_kernel", "min_step_lanes_kernel")
+    thread_kernels = ("ell_narrow_kernel<", "min_step_kernel<")
+    probes = 0                                   # the kernel-name calls
+    for k in narrow:
+        idx, val, msk, x, send, row = (t.cuda() for t in
+                                       _t(*_inputs(800 + k, k, lanes)))
+        x, send, row = front(x), front(send), front(row)
+        extra = front(row.flip(0).contiguous())
+        for sr in ALL:
+            _bits_equal(
+                ell_spmv_ref(idx, val, msk, x, semiring=sr).cpu().numpy(),
+                ell_spmv(idx, val, msk, x, semiring=sr).cpu())
+        for sr in MONO:
+            want = fused_min_step_ref(idx, val, msk, x, send, row, extra,
+                                      semiring=sr)
+            got = fused_min_step(idx, val, msk, x, send, row, extra,
+                                 semiring=sr)
+            for w, g in zip(want, got):
+                _bits_equal(w.cpu().numpy(), g.cpu())
+        if lanes > 1:
+            names, sessions = _kernel_names(
+                lambda: (ell_spmv(idx, val, msk, x, semiring="min_add"),
+                         fused_min_step(idx, val, msk, x, send, row, extra)),
+                lane_kernels if chunks else thread_kernels)
+            probes += sessions
+            for kernel in lane_kernels:
+                assert any(kernel in n for n in names) == chunks, \
+                    (k, kernel, names)
+            for kernel in thread_kernels:
+                assert any(kernel in n for n in names) != chunks, \
+                    (k, kernel, names)
+    assert LAUNCHES["ell_spmv"] == \
+        before["ell_spmv"] + len(ALL) * (1 + len(narrow)) + probes
+    assert LAUNCHES["min_step"] == \
+        before["min_step"] + len(MONO) * (1 + len(narrow)) + probes
     assert LAUNCHES["pr_step"] == before["pr_step"] + 3
+    lanes_on = lanes > 1
+    assert LANE_LAUNCHES["ell_spmv"] == lane_before["ell_spmv"] + \
+        lanes_on * (LAUNCHES["ell_spmv"] - before["ell_spmv"])
+    assert LANE_LAUNCHES["min_step"] == lane_before["min_step"] + \
+        lanes_on * (LAUNCHES["min_step"] - before["min_step"])
