@@ -11,11 +11,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
               with nvcc (one process per source, in parallel): the three
               kernels and ``graph_loop``, the device loop's WHILE node.
 2a. sweep   — both ``ell_spmv`` paths (K = 7, 8, 16; 128; 300, 7,056,
-              32,897), ``min_step`` (K = 7, 8, 16) and both ``pr_step``
-              paths (K = 7, 8, 16, 300; aligned, one row and one element
-              into a larger buffer) on synthetic tiles
-              against their plain versions: every semiring, (N,), (N, 4),
-              (N, 6) and (N, 16) frontiers,
+              32,897), ``min_step`` (K = 7, 8, 16) and every ``pr_step``
+              path (K = 7, 8, 16, 300) on synthetic tiles, aligned and one
+              row or one element into larger buffers, against their plain
+              versions: every semiring, (N,), (N, 4), (N, 6), (N, 16) and
+              (N, 64) frontiers,
               1 % / 50 % / 100 % occupancy and empty fold blocks between
               occupied ones, signed zeros, ±inf ties and NaN; bit-identical,
               NaN by position only.
@@ -90,8 +90,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
               call, beside the bound the card's memory rate and float32
               rate set for the same work.  Also the serving shapes:
               ``min_step`` and ``ell_spmv`` on the grid's base bin and
-              ``pr_step`` and ``ell_spmv`` (beside ``torch.sparse.mm`` with
-              a dense (N, 16) operand) on R-MAT's, all at L = 16.
+              ``pr_step`` (L = 4 and 16) and ``ell_spmv`` (L = 16, beside
+              ``torch.sparse.mm`` with a dense (N, 16) operand) on R-MAT's,
+              and R-MAT's four spill bins at L = 16, each with its launches in
+              the serve phase's K = 16 ppr batch (``LANE_LAUNCHES`` by
+              bin; the smoke fails if one never launched there).
 7. profile  — the first global iterations of each run again under
               ``torch.profiler``: device busy share and device time by
               kernel, ours and PyTorch's glue around them.
@@ -1092,39 +1095,41 @@ def _same_nan_flag(a, b):
 # unrolled rows), a warp per row (128; two rows a warp on an (N,) frontier
 # from 33,792 rows on, four per warp the card holds), a block per row with
 # a ragged last fold block (300), the local hub bin's width, and 258 fold
-# blocks (more than the 256 a round holds, the last one slot wide).  Six
-# lanes take a second lane chunk of four; sixteen, the serving layer's
-# widest batch, four chunks.  On the narrow bins (K < 128) 4, 16 and 64
-# lanes take the lane-chunk kernel (four lanes a thread; 64: two rows a
-# warp), 6 the thread-per-(row, lane) kernel, each also at the
-# SWEEP_LANE_OFFSETS.
+# blocks (more than the 256 a round holds, the last one slot wide).  On
+# the wide bins (K >= 128) 4 and 6 lanes take 4-lane chunks of scalar
+# gathers (6: two chunks), 16 (the serving layer's widest batch) and 64
+# the lane path (16 lanes a pass, 16-byte gathers; 64: four passes).  On the narrow
+# bins (K < 128) 4, 16 and 64 lanes take the lane-chunk kernel (four lanes
+# a thread; 64: two rows a warp), 6 the thread-per-(row, lane) kernel.
+# Every tile also at the SWEEP_LANE_OFFSETS.
 SWEEP_SPMV = ((7, 512, (0, 4, 6, 16, 64)), (8, 512, (0, 4, 6, 16, 64)),
-              (16, 512, (0, 4, 6, 16, 64)), (128, 512, (0, 4, 6, 16)),
-              (128, 40000, (0, 4, 6, 16)), (300, 256, (0, 4, 6, 16)),
-              (7056, 32, (0, 4, 6, 16)), (32897, 8, (0, 6, 16)))
+              (16, 512, (0, 4, 6, 16, 64)), (128, 512, (0, 4, 6, 16, 64)),
+              (128, 40000, (0, 4, 6, 16, 64)), (300, 256, (0, 4, 6, 16, 64)),
+              (7056, 32, (0, 4, 6, 16, 64)), (32897, 8, (0, 6, 16, 64)))
 SWEEP_MIN_STEP = ((7, 512), (8, 512), (16, 512))
 SWEEP_MIN_STEP_LANES = (0, 4, 6, 16, 64)
 # (K, rows, frontier lanes) of the pr_step tiles: the rows path
 # (K = 8 and 16 on an (N,) frontier, also over 600,001 rows: thousands of
-# warps of every fill) and the thread-per-(row, lane) path (K = 7 and 300 with its
-# ragged last fold block, every lane frontier).  Row counts are not
-# multiples of 32.  Each tile also lies one row into a larger buffer
-# (still aligned at K = 8 and 16) and one element in (misaligned: the
-# thread path).
-SWEEP_PR_STEP = ((7, 517, (0, 4, 6, 16)), (8, 517, (0, 4, 6, 16)),
-                 (16, 517, (0, 4, 6, 16)), (300, 517, (0, 4, 6, 16)),
+# warps of every fill); with 4, 16 and 64 lanes the lane-chunk paths (the
+# walk kernel at K = 8 and 16, fold_row4 at K = 7 and 300 with its ragged
+# last fold block), with 6 the thread-per-(row, lane) path.  Row counts
+# are not multiples of 32.  Each tile also at the SWEEP_PR_STEP_OFFSETS:
+# the SWEEP_LANE_OFFSETS (one row into a larger buffer, still aligned at
+# K = 8 and 16; one element in, misaligned: the thread path; the tile
+# alone one element in) and ``word``, the tile alone four elements in (its
+# mask rows 4-byte but not K-aligned at K = 8 and 16: fold_row4 from L1).
+SWEEP_PR_STEP = ((7, 517, (0, 4, 6, 16, 64)), (8, 517, (0, 4, 6, 16, 64)),
+                 (16, 517, (0, 4, 6, 16, 64)), (300, 517, (0, 4, 6, 16, 64)),
                  (8, 600_001, (0,)), (16, 600_001, (0,)))
 SWEEP_OFFSETS = ("none", "row", "element")
-# (tile offset, frontier offset) of the narrow ell_spmv and the min_step
-# sweep cases: SWEEP_OFFSETS applied to both (a frontier one row in stays
-# 16-byte aligned at L % 4 == 0, one element in does not: the thread path),
-# and ``tile``, the tile alone one element in (the lane-chunk path with
-# its row loads unaligned)
+# (tile offset, frontier offset) of every sweep case: SWEEP_OFFSETS
+# applied to both (a frontier one row in stays 16-byte aligned at
+# L % 4 == 0, one element in does not: the thread path, or on the wide
+# bins the scalar 4-lane chunks), and ``tile``, the tile alone one element
+# in (the lane paths with their row loads unaligned)
 SWEEP_LANE_OFFSETS = {o: (o, o) for o in SWEEP_OFFSETS}
 SWEEP_LANE_OFFSETS["tile"] = ("element", "none")
-# from this width on the plain version of a sweep tile runs on the CPU: it
-# folds slot by slot, and on the card each slot's few ops cost a launch each
-SWEEP_HOST_REF_K = 1024
+SWEEP_PR_STEP_OFFSETS = {**SWEEP_LANE_OFFSETS, "word": ("word", "none")}
 SWEEP_FILLS = {"1%": 0.01, "50%": 0.5, "100%": 1.0, "gaps": 0.5}
 SWEEP_N = 4096            # frontier length
 
@@ -1169,25 +1174,29 @@ def _sweep_values(gen, shape, mode, zero=None, neg_rows=False):
 
 def _offset(t, how):
     """``t`` copied into a larger buffer, one row (``row``; an element of
-    a 1-D ``t``) or one element (``element``) from its start, or ``t``
-    itself (``none``)."""
+    a 1-D ``t``), one element (``element``) or four (``word``) from its
+    start, or ``t`` itself (``none``)."""
     import torch
     if how == "none":
         return t
-    pad = t.shape[1] if how == "row" and t.dim() > 1 else 1
+    pad = t.shape[1] if how == "row" and t.dim() > 1 else \
+        4 if how == "word" else 1
     buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=t.device)
     buf[pad:] = t.reshape(-1)
     return buf[pad:].view(t.shape)
 
 
-def _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, offset):
+def _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, tile_off,
+                        front_off):
     """Operands of one pr_step sweep case.  ``zeros``: ±0 edge values with
     every fourth row all -0.0, delta +0.0 (so every term keeps its edge
     value's sign) and an ``extra`` of -0.0.  ``infs``: the ``infs``
     palette for every operand, every fourth row's edge values negative,
     plus NaN edge values.  Either way about a
     third of the send flags are clear, so occupied slots with a clear flag
-    carry -0.0, -1, ±inf and NaN values."""
+    carry -0.0, -1, ±inf and NaN values.  The tile is offset by
+    ``tile_off``, the frontier and row operands by ``front_off``
+    (``_offset``)."""
     import torch
     idx, msk = _sweep_tile(gen, rows, k, fill, SWEEP_N)
     shape = (SWEEP_N, lanes) if lanes else (SWEEP_N,)
@@ -1204,21 +1213,21 @@ def _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, offset):
         extra = _sweep_values(gen, rshape, mode)
     rank = _sweep_values(gen, rshape, mode)
     send = torch.rand(shape, generator=gen, device="cuda") < 0.7
-    idx, val, msk = (_offset(t, offset) for t in (idx, val, msk))
+    idx, val, msk = (_offset(t, tile_off) for t in (idx, val, msk))
+    delta, send, rank, extra = (_offset(t, front_off)
+                                for t in (delta, send, rank, extra))
     return idx, val, msk, delta, send, rank, extra
 
 
 def phase_sweep():
     """Each kernel path against its plain version on synthetic tiles: every
-    semiring, (N,), (N, 4), (N, 6), (N, 16) and, on the narrow bins, (N,
-    64) frontiers (``SWEEP_SPMV``, ``SWEEP_MIN_STEP_LANES``,
-    ``SWEEP_PR_STEP``), 1 %, 50 %, 100 % occupancy and all-padding blocks
-    between occupied ones, signed zeros and ±inf ties; ``pr_step`` also on
-    tiles offset into a larger buffer (``SWEEP_OFFSETS``), the narrow
-    ``ell_spmv`` and ``min_step`` cases on tiles and frontiers offset so
-    (``SWEEP_LANE_OFFSETS``).  Bit-identical, NaN by position only
-    (``_same_nan``, each case's verdict kept on the card and all read at
-    the end)."""
+    semiring, (N,), (N, 4), (N, 6), (N, 16) and (N, 64) frontiers
+    (``SWEEP_SPMV``, ``SWEEP_MIN_STEP_LANES``, ``SWEEP_PR_STEP``), 1 %,
+    50 %, 100 % occupancy and all-padding blocks between occupied ones,
+    signed zeros and ±inf ties, every case also on tiles and frontiers
+    offset into larger buffers (``SWEEP_LANE_OFFSETS``).  Bit-identical,
+    NaN by position only (``_same_nan``, each case's verdict kept on the
+    card and all read at the end)."""
     import torch
     from repro_torch.kernels.common import MONOTONE_SEMIRINGS, SEMIRINGS
     from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
@@ -1236,24 +1245,44 @@ def phase_sweep():
     # the zero that keeps a ⊗-product's sign that of the tile value
     keep_sign = {"add_mul": 0.0, "min_mul": 0.0, "max_min": 0.0,
                  "min_add": -0.0, "max_add": -0.0}
-    for k, rows, lanes, fill, mode, offset in (
-            (k, r, L, f, m, o) for k, r, lane_set in SWEEP_SPMV
-            for L in lane_set for f in SWEEP_FILLS for m in ("zeros", "infs")
-            for o in (SWEEP_LANE_OFFSETS if k < 128 else ("none",))):
-        tile_off, front_off = SWEEP_LANE_OFFSETS[offset]
-        idx, msk = _sweep_tile(gen, rows, k, fill, SWEEP_N)
-        xshape = (SWEEP_N, lanes) if lanes else (SWEEP_N,)
-        val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
-        idx, val, msk = (_offset(t, tile_off) for t in (idx, val, msk))
-        on = "cpu" if k >= SWEEP_HOST_REF_K else "cuda"
-        for sr in SEMIRINGS:
-            x = _offset(_sweep_values(gen, xshape, mode, keep_sign[sr]),
-                        front_off)
-            got = ell_spmv(idx, val, msk, x, semiring=sr).to(on)
-            want = ell_spmv_ref(*(t.to(on) for t in (idx, val, msk, x)),
-                                semiring=sr)
-            check(f"ell_spmv K={k} {fill} {mode} L={lanes} {sr} "
-                  f"offset={offset}", got, want)
+    for k, rows, lane_set in SWEEP_SPMV:
+        for lanes in lane_set:
+            # every case of this tile and width, then one plain version per
+            # semiring over all their rows: row j * rows + r of the stacked
+            # tile is case j's row r, its sources shifted into case j's
+            # block of the stacked frontier (the plain version folds each
+            # row alone, so each case's rows are its own result)
+            cases, got = [], {sr: [] for sr in SEMIRINGS}
+            xshape = (SWEEP_N, lanes) if lanes else (SWEEP_N,)
+            for fill, mode, offset in (
+                    (f, m, o) for f in SWEEP_FILLS
+                    for m in ("zeros", "infs") for o in SWEEP_LANE_OFFSETS):
+                tile_off, front_off = SWEEP_LANE_OFFSETS[offset]
+                idx, msk = _sweep_tile(gen, rows, k, fill, SWEEP_N)
+                val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
+                idx, val, msk = (_offset(t, tile_off) for t in (idx, val, msk))
+                xs = {}
+                for sr in SEMIRINGS:
+                    xs[sr] = _offset(_sweep_values(gen, xshape, mode,
+                                                   keep_sign[sr]), front_off)
+                    got[sr].append(ell_spmv(idx, val, msk, xs[sr],
+                                            semiring=sr))
+                cases.append((f"{fill} {mode} L={lanes}", offset, idx, val,
+                              msk, xs))
+            shift = torch.arange(len(cases), device="cuda",
+                                 dtype=torch.int32).repeat_interleave(rows)
+            idx_all = torch.cat([c[2] for c in cases]) + \
+                shift[:, None] * SWEEP_N
+            val_all = torch.cat([c[3] for c in cases])
+            msk_all = torch.cat([c[4] for c in cases])
+            for sr in SEMIRINGS:
+                want = ell_spmv_ref(idx_all, val_all, msk_all,
+                                    torch.cat([c[5][sr] for c in cases]),
+                                    semiring=sr)
+                for j, (case, offset, *_) in enumerate(cases):
+                    check(f"ell_spmv K={k} {case} {sr} offset={offset}",
+                          got[sr][j], want[j * rows:(j + 1) * rows])
+            del cases, got, idx_all, val_all, msk_all, want
     for (k, rows), fill, mode, lanes, offset in (
             (kr, f, m, L, o) for kr in SWEEP_MIN_STEP for f in SWEEP_FILLS
             for m in ("zeros", "infs") for L in SWEEP_MIN_STEP_LANES
@@ -1278,8 +1307,9 @@ def phase_sweep():
     for k, rows, lanes, fill, mode, offset in (
             (k, r, L, f, m, o) for k, r, lane_set in SWEEP_PR_STEP
             for L in lane_set for f in SWEEP_FILLS for m in ("zeros", "infs")
-            for o in SWEEP_OFFSETS):
-        ops = _pr_step_sweep_case(gen, k, rows, lanes, fill, mode, offset)
+            for o in SWEEP_PR_STEP_OFFSETS):
+        ops = _pr_step_sweep_case(gen, k, rows, lanes, fill, mode,
+                                  *SWEEP_PR_STEP_OFFSETS[offset])
         got = fused_pr_step(*ops)
         want = fused_pr_step_ref(*ops)
         check(f"pr_step K={k} rows={rows} {fill} {mode} L={lanes} "
@@ -1505,20 +1535,22 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
             lambda *a: ell_spmv_ref(*a, semiring="min_add"),
             _bound_ms(msk, idx, 4 * L, 2, lanes=L))
         del xl, sl
-    L = SERVE_LANES
     s = pr_graph.local_ell[0]
     _, idx, msk = slice_flat(s, pr_graph, pr_graph.n_partitions)
     val = pr_prog.ell_edge_values(pr_prog.channels[0], s.val).reshape(
         -1, s.kb)
-    dl = torch.rand((idx.shape[0], L), generator=gen, device="cuda") * 1e-3
-    rl = torch.rand((idx.shape[0], L), generator=gen, device="cuda")
-    sl = rand_send(dl.shape)
-    timed["pr_step_L16"] = case(
-        "pr_step", f"pagerank local base {tuple(idx.shape)}, L={L}",
-        lambda *a: fused_pr_step(*a, **pr_kw),
-        (idx, val, msk, dl, sl, rl, torch.zeros_like(dl)),
-        lambda *a: fused_pr_step_ref(*a, **pr_kw),
-        _bound_ms(msk, idx, 17 * L, 3, flag=sl, lanes=L))
+    for L in (SERVE_WIDTHS[1], SERVE_LANES):
+        dl = torch.rand((idx.shape[0], L), generator=gen,
+                        device="cuda") * 1e-3
+        rl = torch.rand((idx.shape[0], L), generator=gen, device="cuda")
+        sl = rand_send(dl.shape)
+        timed[f"pr_step_L{L}"] = case(
+            "pr_step", f"pagerank local base {tuple(idx.shape)}, L={L}",
+            lambda *a: fused_pr_step(*a, **pr_kw),
+            (idx, val, msk, dl, sl, rl, torch.zeros_like(dl)),
+            lambda *a: fused_pr_step_ref(*a, **pr_kw),
+            _bound_ms(msk, idx, 17 * L, 3, flag=sl, lanes=L))
+    timed[f"pr_step_L{L}"]["lane_key"] = "pr_step"
     xd = torch.where(sl, dl, 0.0).contiguous()
     timed["ell_spmv_L16_rmat"] = case(
         "ell_spmv", f"pagerank local base {tuple(idx.shape)}, L={L}",
@@ -1528,6 +1560,35 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
         library=torch.sparse.mm,
         lib_ops=(_csr_library(idx, val, msk, xd.shape[0]), xd))
     del dl, rl, sl, xd
+
+    # --- the spill bins at L = 16: a K = 16 ppr batch's local spills (every
+    # pseudo-superstep, pr_step's extra) and remote spills (every global
+    # iteration), the wide bins' lane path --------------------------------
+    p, vp = pr_graph.n_partitions, pr_graph.vp
+    for edges, slices, n_src in (
+            ("local", pr_graph.local_ell, p * vp),
+            ("remote", pr_graph.remote_ell, p * (vp + pr_graph.hp))):
+        d = torch.rand((n_src, L), generator=gen, device="cuda") * 1e-3
+        xl = torch.where(rand_send(d.shape), d, 0.0).contiguous()
+        del d
+        for b, s in enumerate(slices):
+            if s.dense:
+                continue
+            _, idx, msk = slice_flat(s, pr_graph, p)
+            val = pr_prog.ell_edge_values(pr_prog.channels[0], s.val) \
+                .reshape(-1, s.kb)
+            row = case(
+                "ell_spmv",
+                f"pagerank {edges} bin{b} {tuple(idx.shape)}, L={L}",
+                lambda *a: ell_spmv(*a, semiring="add_mul"),
+                (idx, val, msk, xl),
+                lambda *a: ell_spmv_ref(*a, semiring="add_mul"),
+                _bound_ms(msk, idx, 4 * L, 2, lanes=L),
+                library=torch.sparse.mm,
+                lib_ops=(_csr_library(idx, val, msk, n_src), xl),
+                reps=5, plain_reps=1)
+            row["lane_key"] = f"ell_spmv {idx.shape[0]}x{idx.shape[1]}"
+        del xl
 
     # --- lanes and semirings: a small (N, L) sweep -------------------------
     s = sssp_graph.local_ell[0]
@@ -2652,6 +2713,22 @@ def phase_serve(sssp_graph, sssp_data, sssp_es, pr_graph, pr_data):
                 graph_digest_s=digest_s,
                 oracle_setup_s=oracle_setup_s, oracle_wait_s=oracle_wait_s,
                 phase_s=secs)
+
+
+def ppr_lane_launches(report, serve):
+    """The kernel phase's L = 16 R-MAT rows get their launches in the serve
+    phase's K = 16 ppr batch (``LANE_LAUNCHES``, ``ell_spmv`` by bin);
+    fails if one of them never launched there."""
+    ppr = next(b for b in serve["batches"] if b["batch"] == "rmat ppr")
+    idle = []
+    for row in report:
+        if "lane_key" in row:
+            row["launches"] = ppr["lane_launches"].get(row["lane_key"], 0)
+            say("kernels", shape=row["shape"],
+                launches_in_K16_ppr_batch=row["launches"])
+            idle += [row["shape"]] if not row["launches"] else []
+    if idle:
+        raise AssertionError(f"the K = 16 ppr batch never launched {idle}")
 
 
 # --------------------------------------------------------------------------
@@ -4199,6 +4276,7 @@ def main() -> int:
     serve = phase_serve(sssp_graph, sssp_data, sssp_es, pr_graph, pr_data)
     del sssp_es
     torch.cuda.empty_cache()
+    ppr_lane_launches(report, serve)
     lap("serve")
     obs = phase_obs(sssp_graph, sssp_want, pr_graph, pr_want)
     lap("obs")

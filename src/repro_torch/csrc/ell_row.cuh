@@ -1,6 +1,7 @@
 // One sliced-ELL row in registers, for the kernels that give each thread one
 // (row, lane) output, or four lanes of one row (the lane-chunk path, below):
-// the narrow bins of `ell_spmv` (K = 8, 16) and the `min_step` base bin.
+// the narrow bins of `ell_spmv` (K = 8, 16), the `min_step` base bin and
+// `pr_step`'s lane paths.
 //
 // A thread has its row's mask and the idx (and, unless its slot functor
 // reads only some, val) of its occupied slots in registers before it

@@ -75,8 +75,32 @@
 //     the memory rate, plus the few occupied blocks.
 //     A row of more than 256 fold blocks (K > 32,768) goes in rounds of
 //     256, the left-to-right fold carried from one round to the next.
-//   - An (N, L) frontier of more than four lanes takes lane chunks of
-//     four, one per blockIdx.y.
+//   - Lane path (an (N, L) frontier, L % 4 == 0 beyond four lanes, x
+//     16-byte aligned: the K-lane ppr queries' spill bins).  Bound: the
+//     mask once, idx/val of the occupied slots, 4 L bytes per distinct
+//     source and per row.  The first design took lane chunks of four, one
+//     per blockIdx.y, each chunk scanning the whole mask again and
+//     gathering one float a lane: at L = 16 the hub bin's 466 MB mask was
+//     read four times (1.0619 ms against a 0.1817 ms bound, H100 80GB
+//     HBM3 at 700 W, `tools/ab_ppr_lanes.py`).  Now one block (K > 128)
+//     or warp (K = 128) takes up to kWideLanes = 16 lanes in one pass: the
+//     mask is scanned and the occupied blocks' idx/val loaded once for all
+//     of them.  In an occupied block the warp compacts the occupied slots'
+//     (idx, val) in slot order into shared memory, then, kGroup = 32 slots
+//     at a time, gathers every (slot, 4 lanes) as one 16-byte load (at
+//     L = 16 four threads read a source's 64-byte segment, four loads a
+//     thread in flight), stages the products per (slot, lane) in shared
+//     memory (32 × 16 floats a warp), and one lane per output lane folds
+//     them onto its chain in slot order; block partials per (block, lane),
+//     kRound × 16 floats, folded left to right as above, one thread per
+//     output lane.  A block of 8 warps takes 40 KB (K > 128) or 24 KB
+//     (K = 128) of shared memory.  Measured at L = 16 (same card and
+//     tool): staging a whole fold block's products at once (88 KB, two
+//     blocks an SM) took 0.51–0.56 ms on the hub bin, 64 slots at a time
+//     0.375, 32 slots 0.340.  At L = 64, four passes of 16 lanes beat one
+//     pass of 64 (1.148 against 1.254 ms on the hub bin: 64 lanes of
+//     partials take 64 KB, two blocks an SM).  L <= 4, any other L or a
+//     misaligned x keep the 4-lane chunks of scalar gathers.
 //
 // Why skipping padding is exact.  The reference folds every slot, a masked
 // or pad slot as the ⊕ identity e.  For min_add, max_add, min_mul and
@@ -105,7 +129,15 @@ namespace graphhp {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kWarps = 8;         // warps a block of the wide path, at most
-constexpr int kLaneChunk = 4;     // output lanes of an (N, L) frontier a block takes
+constexpr int kLaneChunk = 4;     // output lanes a block takes on the scalar lane path
+// Output lanes a wide-bin block takes in one pass on the lane path (L % 4
+// == 0, L > 4, x 16-byte aligned); kLaneChunk (4): every (N, L) frontier
+// takes the scalar lane path, the design before.
+constexpr int kWideLanes = 16;
+constexpr int kSub = 16;          // lanes of one staged product pass (lane path)
+// Occupied slots of a fold block whose products a warp stages at once
+// (lane path): kGroup * kSub / 128 16-byte gathers a lane in flight.
+constexpr int kGroup = 32;
 constexpr int kRound = 256;       // fold-block partials held in shared memory
 constexpr int kScan = 8;          // 16-byte mask loads a thread has in flight
 
@@ -347,6 +379,117 @@ __device__ __forceinline__ float warp_blocks(const int* ri, const float* rv,
   return part;
 }
 
+// The lane path: one warp's 128-slot fold block for output lanes l0 ..
+// l0+lc-1 at once (lc % 4 == 0).  The block starts at ri / rv and holds
+// min(128, lim) real slots; this lane's mask word is w (its slots 4*lane ..
+// 4*lane+3).  The occupied slots' (idx, val) go compacted in slot order to
+// `slot` (128 of this warp); then, kSub lanes a pass and kGroup occupied
+// slots at a time, the warp gathers every (slot, 4 lanes) as one 16-byte
+// load, all of a lane's in flight, leaves the products in `stage` (kGroup
+// × kSub floats of this warp), and lane c folds lane l0 + s0 + c's
+// products onto its chain in slot order; it hands the block's partial to
+// out(s0 + c, part).  A block of no occupied slot hands out the ⊕
+// identity.
+template <int S, class Out>
+__device__ __forceinline__ void warp_block_lanes(const int* ri, const float* rv,
+                                                 int lim, unsigned w,
+                                                 const float* x, int lanes,
+                                                 int l0, int lc, float* stage,
+                                                 int2* slot, int lane,
+                                                 const Out& out) {
+  using SR = Semiring<S>;
+  const unsigned lt = (1u << lane) - 1u;
+  const unsigned occ = nibble(w);
+  const unsigned q0 = __ballot_sync(kFullWarp, occ & 1u);
+  const unsigned q1 = __ballot_sync(kFullWarp, occ & 2u);
+  const unsigned q2 = __ballot_sync(kFullWarp, occ & 4u);
+  const unsigned q3 = __ballot_sync(kFullWarp, occ & 8u);
+  const int n_occ = __popc(q0) + __popc(q1) + __popc(q2) + __popc(q3);
+  if (n_occ == 0) {                                      // warp-uniform
+    for (int c = lane; c < lc; c += 32) out(c, SR::ident());
+    return;
+  }
+  if (occ) {
+    int p = __popc(q0 & lt) + __popc(q1 & lt) + __popc(q2 & lt) + __popc(q3 & lt);
+    const int s = 4 * lane;
+    if (s + 4 <= lim && aligned(ri + s, 16) && aligned(rv + s, 16)) {
+      const int4 a = __ldcs(reinterpret_cast<const int4*>(ri + s));
+      const float4 b = __ldcs(reinterpret_cast<const float4*>(rv + s));
+      const int ia[4] = {a.x, a.y, a.z, a.w};
+      const float va[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (occ & (1u << q)) slot[p++] = make_int2(ia[q], __float_as_int(va[q]));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (occ & (1u << q))
+          slot[p++] = make_int2(__ldcs(ri + s + q), __float_as_int(__ldcs(rv + s + q)));
+    }
+  }
+  __syncwarp();
+  constexpr int C4 = kSub / 4;                           // 16-byte words a pass
+  constexpr int kGather = kGroup * C4 / 32;             // gathers a lane a group
+  float4* st4 = reinterpret_cast<float4*>(stage);
+  for (int s0 = 0; s0 < lc; s0 += kSub) {
+    const int sw = min(kSub, lc - s0);
+    const float* xs = x + l0 + s0;
+    float part = 0.0f;
+    for (int g0 = 0; g0 < n_occ; g0 += kGroup) {
+      const int ng = min(kGroup, n_occ - g0);
+      // gathers and products: item e is slot g0 + e / C4, lanes 4 * (e %
+      // C4) .. of the pass, all of a lane's in flight at once
+      float4 g[kGather];
+      float v[kGather];
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        const int e = 32 * u + lane;
+        const int c4 = e % C4;
+        g[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        v[u] = 0.0f;
+        if (e / C4 < ng && 4 * c4 < sw) {
+          const int2 iv = slot[g0 + e / C4];
+          v[u] = __int_as_float(iv.y);
+          g[u] = __ldg(reinterpret_cast<const float4*>(
+              xs + static_cast<long long>(iv.x) * lanes + 4 * c4));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        const int e = 32 * u + lane;
+        if (e / C4 < ng && 4 * (e % C4) < sw)
+          st4[e] = make_float4(SR::times(v[u], g[u].x), SR::times(v[u], g[u].y),
+                               SR::times(v[u], g[u].z), SR::times(v[u], g[u].w));
+      }
+      __syncwarp();
+      if (lane < sw) {
+        // one lane per output lane folds the group's products in slot
+        // order, eight loads ahead
+        const float* sp = stage + lane;
+        int p = 0;
+        if (g0 == 0) {
+          part = sp[0];
+          p = 1;
+        }
+        for (; p + 8 <= ng; p += 8) {
+          float t[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) t[q] = sp[(p + q) * kSub];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) part = SR::combine(part, t[q]);
+        }
+        for (; p < ng; ++p) part = SR::combine(part, sp[p * kSub]);
+      }
+      __syncwarp();
+    }
+    if (lane < sw) {
+      // skipped slots: one ⊕ identity stands for all of them (header)
+      if (n_occ < kFold) part = SR::combine(part, SR::ident());
+      out(s0 + lane, part);
+    }
+  }
+}
+
 // K = 128: a warp per row, RW consecutive rows at once (one fold block
 // each, which is the row's result).  Persistent warps: each walks groups
 // of RW rows a grid apart, the next group's mask words in flight while it
@@ -360,13 +503,14 @@ __device__ __forceinline__ void warp_rows_masks(const unsigned char* msk,
     w[j] = r0 + j < rows ? mask_word(msk + (r0 + j) * kFold, kFold, 4 * lane) : 0u;
 }
 
-template <int S, int RW>
+// Vec: the lane path (RW = 1; warp_block_lanes over `lcap` lanes a pass).
+template <int S, int RW, bool Vec>
 __global__ void __launch_bounds__(kWarps * 32)
 ell_warp_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val,
                      const unsigned char* __restrict__ msk,
                      const float* __restrict__ x, float* __restrict__ y,
                      long long rows, int lanes, int lcap) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long stride = static_cast<long long>(gridDim.x) * kWarps * RW;
   long long r0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) * RW;
@@ -382,12 +526,21 @@ ell_warp_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val,
     for (int j = 0; j < RW; ++j) w[j] = w_next[j];
     if (r0 + stride < rows) warp_rows_masks<RW>(msk, rows, r0 + stride, lane, w_next);
     const long long base = r0 * kFold;
-    const int nrow = static_cast<int>(min(static_cast<long long>(RW), rows - r0));
-    int n;
-    const float part = warp_blocks<S, RW>(idx + base, val + base, nrow * kFold, w,
-                                          x, lanes, l0, lc,
-                                          smem + warp * RW * kFold * lcap, lane, &n);
-    if (jb < nrow) y[(r0 + jb) * lanes + l0 + c] = part;
+    if constexpr (Vec) {
+      float* yr = y + r0 * lanes + l0;
+      warp_block_lanes<S>(idx + base, val + base, kFold, w[0], x, lanes, l0, lc,
+                          smem + warp * kGroup * kSub,
+                          reinterpret_cast<int2*>(smem + kWarps * kGroup * kSub) +
+                              warp * kFold,
+                          lane, [&](int l, float part) { yr[l] = part; });
+    } else {
+      const int nrow = static_cast<int>(min(static_cast<long long>(RW), rows - r0));
+      int n;
+      const float part = warp_blocks<S, RW>(idx + base, val + base, nrow * kFold, w,
+                                            x, lanes, l0, lc,
+                                            smem + warp * RW * kFold * lcap, lane, &n);
+      if (jb < nrow) y[(r0 + jb) * lanes + l0 + c] = part;
+    }
   }
 }
 
@@ -399,14 +552,16 @@ ell_warp_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val,
 //    all-padding block is read.
 // 3. One thread per output lane folds the partials left to right; a run
 //    of all-padding blocks is one ⊕ identity (x ⊕ e ⊕ e = x ⊕ e).
-template <int S>
+// Vec: the lane path (warp_block_lanes over `lcap` lanes a pass; the
+// block has at least lcap threads).
+template <int S, bool Vec>
 __global__ void __launch_bounds__(kWarps * 32)
 ell_block_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val,
                       const unsigned char* __restrict__ msk,
                       const float* __restrict__ x, float* __restrict__ y,
                       int k_slots, int lanes, int lcap) {
   using SR = Semiring<S>;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ unsigned busy[kRound / 32];
   __shared__ short list[kRound];
   __shared__ int n_busy;
@@ -415,7 +570,11 @@ ell_block_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val
   const long long r = blockIdx.x;
   const int l0 = blockIdx.y * lcap;
   const int lc = min(lcap, lanes - l0);
-  float* parts = smem + nw * kFold * lcap;               // kRound * lcap
+  // products, then (Vec) compacted slots, then kRound * lcap partials
+  float* stage = smem;
+  int2* slots = reinterpret_cast<int2*>(smem + nw * kGroup * kSub);
+  float* parts = Vec ? smem + nw * (kGroup * kSub + 2 * kFold)
+                     : smem + nw * kFold * lcap;
   const long long base = r * k_slots;
   const int* ri = idx + base;
   const float* rv = val + base;
@@ -472,11 +631,20 @@ ell_block_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val
     for (int e = warp; e < n_busy; e += nw) {
       const int b = c0 + list[e];
       const unsigned w[1] = {mask_word(rm, k_slots, b * kFold + 4 * lane)};
-      int n;
-      const float part = warp_blocks<S, 1>(ri + b * kFold, rv + b * kFold,
-                                           k_slots - b * kFold, w, x, lanes,
-                                           l0, lc, smem + warp * kFold * lcap, lane, &n);
-      if (lane < lc) parts[list[e] * lc + lane] = part;
+      if constexpr (Vec) {
+        float* pb = parts + list[e] * lc;
+        warp_block_lanes<S>(ri + b * kFold, rv + b * kFold, k_slots - b * kFold,
+                            w[0], x, lanes, l0, lc, stage + warp * kGroup * kSub,
+                            slots + warp * kFold, lane,
+                            [&](int l, float part) { pb[l] = part; });
+      } else {
+        int n;
+        const float part = warp_blocks<S, 1>(ri + b * kFold, rv + b * kFold,
+                                             k_slots - b * kFold, w, x, lanes,
+                                             l0, lc, stage + warp * kFold * lcap,
+                                             lane, &n);
+        if (lane < lc) parts[list[e] * lc + lane] = part;
+      }
     }
     __syncthreads();
     // 3. partials left to right
@@ -537,23 +705,40 @@ void launch_narrow_k(const int* idx, const float* val, const unsigned char* msk,
   }
 }
 
-template <int S, int RW>
+// Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB
+// only once allowed; the call is no stream operation, so it may come
+// inside a graph capture).
+template <class K>
+void allow_smem(K kernel, size_t smem) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+}
+
+// The lane path: L % 4 == 0 beyond kLaneChunk lanes, x 16-byte aligned.
+inline bool wide_lanes_apply(int lanes, const float* x) {
+  return kWideLanes > kLaneChunk && lanes > kLaneChunk && lanes % 4 == 0 &&
+         (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+}
+
+template <int S, int RW, bool Vec>
 void launch_rows_per_warp(const int* idx, const float* val,
                           const unsigned char* msk, const float* x, float* y,
                           long long rows, int lanes, int lcap, int sms,
                           cudaStream_t stream) {
   // persistent: as many blocks as the card holds at once, or fewer
-  const size_t smem = sizeof(float) * kWarps * RW * kFold * lcap;
+  const size_t smem = Vec ? sizeof(float) * kWarps * (kGroup * kSub + 2 * kFold)
+                          : sizeof(float) * kWarps * RW * kFold * lcap;
+  auto kernel = ell_warp_rows_kernel<S, RW, Vec>;
+  allow_smem(kernel, smem);
   int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ell_warp_rows_kernel<S, RW>, kWarps * 32, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, smem);
   const long long warps = (rows + RW - 1) / RW;
   const long long blocks = std::min<long long>((warps + kWarps - 1) / kWarps,
                                                std::max(1, sms * per_sm));
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>((lanes + lcap - 1) / lcap));
-  ell_warp_rows_kernel<S, RW><<<grid, kWarps * 32, smem, stream>>>(
-      idx, val, msk, x, y, rows, lanes, lcap);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(idx, val, msk, x, y, rows, lanes, lcap);
 }
 
 // K = 128.  Two rows a warp halve the warps: worth it only on an (N,)
@@ -563,16 +748,18 @@ void launch_rows_per_warp(const int* idx, const float* val,
 template <int S>
 void launch_warp_rows(const int* idx, const float* val, const unsigned char* msk,
                       const float* x, float* y, long long rows, int lanes,
-                      int lcap, cudaStream_t stream) {
+                      int lcap, bool vec, cudaStream_t stream) {
   int dev = 0, sms = 0, sm_threads = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&sm_threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
   const long long many_rows = 4LL * sms * (sm_threads / 32);
-  if (lanes == 1 && rows >= many_rows)
-    launch_rows_per_warp<S, 2>(idx, val, msk, x, y, rows, 1, 1, sms, stream);
+  if (vec)
+    launch_rows_per_warp<S, 1, true>(idx, val, msk, x, y, rows, lanes, lcap, sms, stream);
+  else if (lanes == 1 && rows >= many_rows)
+    launch_rows_per_warp<S, 2, false>(idx, val, msk, x, y, rows, 1, 1, sms, stream);
   else
-    launch_rows_per_warp<S, 1>(idx, val, msk, x, y, rows, lanes, lcap, sms, stream);
+    launch_rows_per_warp<S, 1, false>(idx, val, msk, x, y, rows, lanes, lcap, sms, stream);
 }
 
 template <int S>
@@ -591,18 +778,22 @@ void launch(const void* idx_, const void* val_, const void* msk_,
       launch_narrow_k<S, long long>(idx, val, msk, x, y, rows, k_slots, lanes, stream);
     return;
   }
-  const int lcap = std::min(lanes, kLaneChunk);
+  const bool vec = wide_lanes_apply(lanes, x);
+  const int lcap = std::min(lanes, vec ? kWideLanes : kLaneChunk);
   if (k_slots == kFold) {
-    launch_warp_rows<S>(idx, val, msk, x, y, rows, lanes, lcap, stream);
+    launch_warp_rows<S>(idx, val, msk, x, y, rows, lanes, lcap, vec, stream);
     return;
   }
   const int nb = (k_slots + kFold - 1) / kFold;
-  const int nw = std::max(1, std::min(kWarps, (nb + 7) / 8));
+  int nw = std::max(1, std::min(kWarps, (nb + 7) / 8));
+  if (vec) nw = std::max(nw, (lcap + 31) / 32);          // a thread per lane
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((lanes + lcap - 1) / lcap));
-  const size_t smem = sizeof(float) * (nw * kFold + kRound) * lcap;
-  ell_block_rows_kernel<S><<<grid, nw * 32, smem, stream>>>(
-      idx, val, msk, x, y, k_slots, lanes, lcap);
+  const size_t smem = vec ? sizeof(float) * (nw * (kGroup * kSub + 2 * kFold) + kRound * lcap)
+                          : sizeof(float) * (nw * kFold + kRound) * lcap;
+  auto kernel = vec ? ell_block_rows_kernel<S, true> : ell_block_rows_kernel<S, false>;
+  allow_smem(kernel, smem);
+  kernel<<<grid, nw * 32, smem, stream>>>(idx, val, msk, x, y, k_slots, lanes, lcap);
 }
 
 }  // namespace graphhp

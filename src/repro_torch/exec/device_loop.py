@@ -288,7 +288,9 @@ def _restore(snap):
     """Put the counts back to ``snap``; returns what was added since."""
     added = []
     for d, old in zip((LAUNCHES, LANE_LAUNCHES), snap):
-        added.append({k: d[k] - old[k] for k in d if d[k] != old[k]})
+        added.append({k: v - old.get(k, 0) for k, v in d.items()
+                      if v != old.get(k, 0)})
+        d.clear()
         d.update(old)
     return added
 

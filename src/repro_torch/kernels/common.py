@@ -73,7 +73,8 @@ FOLD_SLICES = 128
 #: ``graph_loop`` counts the loop's set-condition kernel.
 LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0, "graph_loop": 0}
 # the launches of LAUNCHES that took an (N, L) frontier with L > 1 (the
-# K-lane programs' queries), counted at the same place
+# K-lane programs' queries), counted at the same place; ell_spmv's also by
+# bin, under "ell_spmv <rows>x<K>" (a key appears at its first launch)
 LANE_LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0}
 
 
@@ -113,7 +114,7 @@ def settle_launches(counts: list[TripCount], trips: list[int]) -> None:
         for k, m in c.per_trip.items():
             LAUNCHES[k] += new * m
         for k, m in c.lane_per_trip.items():
-            LANE_LAUNCHES[k] += new * m
+            LANE_LAUNCHES[k] = LANE_LAUNCHES.get(k, 0) + new * m
         _UNSETTLED.pop(id(c), None)
 
 

@@ -52,6 +52,8 @@ def ell_spmv(idx, val, msk, x, *, semiring: str = "add_mul"):
     LAUNCHES["ell_spmv"] += 1
     if lanes > 1:
         LANE_LAUNCHES["ell_spmv"] += 1
+        key = f"ell_spmv {rows}x{k}"
+        LANE_LAUNCHES[key] = LANE_LAUNCHES.get(key, 0) + 1
     return y
 
 

@@ -393,11 +393,16 @@ def world4(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world8():
+    """One spawn of 8 ranks: every case × delivery.  Only the world-8
+    cases request it, so it starts once the world-4 cases are done, and a
+    spawn that fails fails those cases alone."""
     jobs = _run_jobs()
+    t0 = time.monotonic()
     res = D.spawn_ranks(_jobs_rank, 8, args=([j for _, j in jobs],),
                         deadline_s=DEADLINE, **CPU)
+    seconds = time.monotonic() - t0
     keys = [k for k, _ in jobs]
-    return dict(by_rank=[dict(zip(keys, r)) for r in res])
+    return dict(seconds=seconds, by_rank=[dict(zip(keys, r)) for r in res])
 
 
 # ---------------------------------------------------------------------------
@@ -555,9 +560,8 @@ def test_all_gather_rows_round_trips_every_dtype():
 @pytest.mark.parametrize("use_ell", [True, False])
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("world", [4, 8])
-def test_dist_step_matches_reference_host_run(world4, world8, world, case,
-                                              use_ell):
-    runs = (world4 if world == 4 else world8)["by_rank"]
+def test_dist_step_matches_reference_host_run(request, world, case, use_ell):
+    runs = request.getfixturevalue(f"world{world}")["by_rank"]
     got = runs[0][("run", case, use_ell)]
     want_es, want_iters = ref_run(case, use_ell)
     assert_run_equal(got["es"], got["iterations"], want_es, want_iters,

@@ -21,8 +21,9 @@ change a bit), and a separate test holds each lane column of the port,
 with arbitrary inputs, bit-equal to the reference's single-lane dispatch —
 the lane contract the reference documents.
 
-``ell_spmv`` and ``min_step`` are also held at L = 4 and 16, the widths
-their lane-chunk CUDA path takes (the serving batches' K).
+``ell_spmv``, ``min_step`` and ``pr_step`` are also held at L = 4 and 16,
+the widths their lane-chunk CUDA paths take (the serving batches' K), and
+the lane columns at L = 16 on the wide (K = 136) bins' lane path.
 
 The CUDA kernels against their plain versions need a GPU: those tests are
 marked ``gpu`` and skip here (``chip_smoke.py`` covers them on the card).
@@ -63,7 +64,7 @@ ALL = ("add_mul", "min_add", "max_add", "min_mul", "max_min")
 MONO = ("min_add", "max_add", "min_mul", "max_min")
 KS = (8, 128, 136, 300)
 LANES = (0, 3)
-# ell_spmv and min_step also at the lane-chunk path's widths
+# the lane-chunk paths' widths
 CHUNK_LANES = LANES + (4, 16)
 R = 24          # rows; frontier N = R so the fused kernels' xrow defaults hold
 
@@ -209,7 +210,7 @@ def test_min_step_matches_pallas(semiring, k, lanes):
         _bits_equal(w, g)
 
 
-@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("lanes", CHUNK_LANES)
 @pytest.mark.parametrize("k", KS)
 def test_pr_step_matches_pallas(k, lanes):
     idx, val, msk, x, send, row = _inputs(200 + k + lanes, k, lanes,
@@ -229,17 +230,20 @@ def test_pr_step_matches_pallas(k, lanes):
 
 
 @pytest.mark.parametrize("kernel", ["ell_spmv", "pr_step"])
-@pytest.mark.parametrize("k", (8, 136))
-def test_lane_columns_match_single_lane_pallas(kernel, k):
+@pytest.mark.parametrize("k,lanes", [(8, 3), (136, 3), (136, 16)],
+                         ids=["8", "136", "136-L16"])
+def test_lane_columns_match_single_lane_pallas(kernel, k, lanes):
     """Arbitrary float inputs: each lane column of the port equals the
-    reference's single-lane dispatch of that column, bit for bit."""
-    idx, val, msk, x, send, row = _inputs(300 + k, k, lanes=3)
+    reference's single-lane dispatch of that column, bit for bit (L = 16
+    at K = 136: the wide bins' lane path)."""
+    seed = 300 + k + (lanes if lanes > 3 else 0)
+    idx, val, msk, x, send, row = _inputs(seed, k, lanes=lanes)
     if kernel == "ell_spmv":
         got = ell_spmv(*_t(idx, val, msk, x)).numpy()
     else:
         got = fused_pr_step(*_t(idx, val, msk, x, send, row),
                             damping=0.85, tol=1e-3)[1].numpy()
-    for j in range(3):
+    for j in range(lanes):
         cols = [np.ascontiguousarray(a[:, j]) for a in (x, send, row)]
         if kernel == "ell_spmv":
             want = jax_ell_spmv(idx, val, msk, cols[0])
@@ -277,7 +281,7 @@ def test_min_step_special_values_match_pallas(semiring, case, k, lanes):
         _bits_equal(w, g)
 
 
-@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("lanes", LANES + (16,))
 @pytest.mark.parametrize("k", SPECIAL_KS)
 @pytest.mark.parametrize("case", PR_SPECIAL)
 def test_pr_step_special_values_match_pallas(case, k, lanes):
@@ -374,18 +378,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             ell_spmv(idx, val, msk, x)
 
 
-# the gpu test's frontier widths: (N,), the thread-per-(row, lane) path
-# (3, 6) and the lane-chunk path (4, 16, 64)
+# the gpu test's frontier widths: (N,), the thread-per-(row, lane) paths
+# (3, 6), the lane-chunk paths (4, 16, 64) and the wide bins' lane path
+# (16, 64; 4 keeps the wide bins' 4-lane chunks)
 GPU_LANES = (0, 3, 4, 6, 16, 64)
 
 
-def _element_off(t):
-    """``t`` copied into a buffer one element larger, viewed from its
-    second element: contiguous, but its data 4 (or 1) bytes off the
+def _element_off(t, n=1):
+    """``t`` copied into a buffer ``n`` elements larger, viewed from its
+    element ``n``: contiguous, but its data 4n (or n) bytes off the
     allocation's alignment."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    buf[1:] = t.reshape(-1)
-    return buf[1:].view(t.shape)
+    buf = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    buf[n:] = t.reshape(-1)
+    return buf[n:].view(t.shape)
 
 
 def _kernel_names(fn, want):
@@ -407,6 +412,15 @@ def _kernel_names(fn, want):
     return names, n
 
 
+def _expect_kernels(names, on, off, where):
+    """Every name of ``on`` a substring of a launched kernel's, none of
+    ``off``."""
+    for kernel in on:
+        assert any(kernel in n for n in names), (where, kernel, names)
+    for kernel in off:
+        assert not any(kernel in n for n in names), (where, kernel, names)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("offset", ["none", "element"])
 @pytest.mark.parametrize("lanes", GPU_LANES)
@@ -414,15 +428,22 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
     """On the card: each kernel bit-identical to its plain version on the
     same CUDA tensors, and each launch counted.  ``pr_step`` also on the
     unsent-special-val inputs at K = 8 and 16, whose fresh (aligned) tiles
-    take the rows path with an (N,) frontier and the thread path with
-    lanes (NaN by position, as on the CPU).  ``ell_spmv`` and ``min_step``
-    also at K = 7, 8 and 16, the narrow bins: with L % 4 == 0 and an
-    aligned frontier they launch the lane-chunk kernels, with any other L
-    or a frontier one element off alignment (``offset``) the
-    thread-per-(row, lane) kernels (checked by kernel name)."""
+    take the rows path with an (N,) frontier and a lane path with lanes
+    (NaN by position, as on the CPU).  All three also at K = 7, 8 and 16,
+    the narrow bins: with L % 4 == 0 and an aligned frontier they launch
+    the lane-chunk kernels (``pr_step``'s walk kernel at K = 8 and 16;
+    with the mask four bytes off alignment, its fold_row4 kernel), with
+    any other L or a frontier one element off alignment (``offset``) the
+    thread-per-(row, lane) kernels.  ``ell_spmv`` also at K = 128, 136
+    and 300, the wide bins: with L % 4 == 0 beyond 4 lanes and an aligned
+    frontier they take the lane path (the ``true`` instances), otherwise
+    the scalar 4-lane chunks (checked by kernel name, and each wide bin's
+    launches counted under its shape)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     front = _element_off if offset == "element" else (lambda t: t)
+    calls = dict.fromkeys(LAUNCHES, 0)              # launches this test makes
+    bins = {}                                       # wide ell_spmv calls by shape
     idx, val, msk, x, send, row = (t.cuda() for t in
                                    _t(*_inputs(9, 136, lanes)))
     x, send, row = front(x), front(send), front(row)
@@ -430,6 +451,8 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
     for sr in ALL:
         _bits_equal(ell_spmv_ref(idx, val, msk, x, semiring=sr).cpu().numpy(),
                     ell_spmv(idx, val, msk, x, semiring=sr).cpu())
+    calls["ell_spmv"] += len(ALL)
+    bins[f"{R}x136"] = len(ALL)
     for sr in MONO:
         ident = torch.full_like(x, SEMIRINGS[sr][2])
         want = fused_min_step_ref(idx, val, msk, x, send, x, ident,
@@ -437,11 +460,13 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
         got = fused_min_step(idx, val, msk, x, send, semiring=sr)
         for w, g in zip(want, got):
             _bits_equal(w.cpu().numpy(), g.cpu())
+    calls["min_step"] += len(MONO)
     want = fused_pr_step_ref(idx, val, msk, x, send, row,
                              torch.zeros_like(row), tol=1e-3)
     got = fused_pr_step(idx, val, msk, x, send, row, tol=1e-3)
     for w, g in zip(want, got):
         _bits_equal(w.cpu().numpy(), g.cpu())
+    calls["pr_step"] += 1
     for k in (8, 16):
         idx, val, msk, x, send, row = (t.cuda() for t in _t(
             *_special_inputs(700 + k, k, lanes, "unsent_special_val")))
@@ -453,12 +478,9 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
                             damping=0.75, tol=1e-3)
         for w, g in zip(want, got):
             _bits_equal_nan(w.cpu().numpy(), g.cpu())
-    narrow = (7, 8, 16)
+        calls["pr_step"] += 1
     chunks = lanes % 4 == 0 and lanes > 0 and offset == "none"
-    lane_kernels = ("ell_lanes_kernel", "min_step_lanes_kernel")
-    thread_kernels = ("ell_narrow_kernel<", "min_step_kernel<")
-    probes = 0                                   # the kernel-name calls
-    for k in narrow:
+    for k in (7, 8, 16):
         idx, val, msk, x, send, row = (t.cuda() for t in
                                        _t(*_inputs(800 + k, k, lanes)))
         x, send, row = front(x), front(send), front(row)
@@ -474,25 +496,73 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
                                  semiring=sr)
             for w, g in zip(want, got):
                 _bits_equal(w.cpu().numpy(), g.cpu())
+        dl = x / 64.0
+        want = fused_pr_step_ref(idx, val, msk, dl, send, row, extra,
+                                 tol=1e-3)
+        got = fused_pr_step(idx, val, msk, dl, send, row, extra, tol=1e-3)
+        for w, g in zip(want, got):
+            _bits_equal(w.cpu().numpy(), g.cpu())
+        calls["ell_spmv"] += len(ALL)
+        calls["min_step"] += len(MONO)
+        calls["pr_step"] += 1
         if lanes > 1:
+            pr_lane = "pr_step_walk_kernel" if k in (8, 16) else \
+                "pr_step_lanes_kernel"
+            lane_kernels = ("ell_lanes_kernel", "min_step_lanes_kernel",
+                            pr_lane)
+            thread_kernels = ("ell_narrow_kernel<", "min_step_kernel<",
+                              "pr_step_kernel<")
             names, sessions = _kernel_names(
                 lambda: (ell_spmv(idx, val, msk, x, semiring="min_add"),
-                         fused_min_step(idx, val, msk, x, send, row, extra)),
+                         fused_min_step(idx, val, msk, x, send, row, extra),
+                         fused_pr_step(idx, val, msk, dl, send, row, extra)),
                 lane_kernels if chunks else thread_kernels)
-            probes += sessions
-            for kernel in lane_kernels:
-                assert any(kernel in n for n in names) == chunks, \
-                    (k, kernel, names)
-            for kernel in thread_kernels:
-                assert any(kernel in n for n in names) != chunks, \
-                    (k, kernel, names)
-    assert LAUNCHES["ell_spmv"] == \
-        before["ell_spmv"] + len(ALL) * (1 + len(narrow)) + probes
-    assert LAUNCHES["min_step"] == \
-        before["min_step"] + len(MONO) * (1 + len(narrow)) + probes
-    assert LAUNCHES["pr_step"] == before["pr_step"] + 3
+            for name in calls:
+                calls[name] += sessions * (name != "graph_loop")
+            _expect_kernels(names, *((lane_kernels, thread_kernels) if chunks
+                                     else (thread_kernels, lane_kernels)), k)
+        if chunks:
+            # mask rows 4-byte but not K-aligned: fold_row4 from L1
+            mw = _element_off(msk, 4)
+            want = fused_pr_step_ref(idx, val, mw, dl, send, row, extra,
+                                     tol=1e-3)
+            got = fused_pr_step(idx, val, mw, dl, send, row, extra, tol=1e-3)
+            for w, g in zip(want, got):
+                _bits_equal(w.cpu().numpy(), g.cpu())
+            names, sessions = _kernel_names(
+                lambda: fused_pr_step(idx, val, mw, dl, send, row, extra),
+                ("pr_step_lanes_kernel",))
+            calls["pr_step"] += 1 + sessions
+            _expect_kernels(names, ("pr_step_lanes_kernel",),
+                            ("pr_step_walk_kernel",), (k, "mask+4"))
+    vec = chunks and lanes > 4
+    for k in (128, 136, 300):
+        idx, val, msk, x, _, _ = (t.cuda() for t in
+                                  _t(*_inputs(900 + k, k, lanes)))
+        x = front(x)
+        for sr in ALL:
+            _bits_equal(
+                ell_spmv_ref(idx, val, msk, x, semiring=sr).cpu().numpy(),
+                ell_spmv(idx, val, msk, x, semiring=sr).cpu())
+        calls["ell_spmv"] += len(ALL)
+        shape = f"{R}x{k}"
+        bins[shape] = bins.get(shape, 0) + len(ALL)
+        if lanes > 1:
+            kernel = "ell_warp_rows_kernel<1, 1, " if k == 128 else \
+                "ell_block_rows_kernel<1, "
+            on, off = kernel + ("true>" if vec else "false>"), \
+                kernel + ("false>" if vec else "true>")
+            names, sessions = _kernel_names(
+                lambda: ell_spmv(idx, val, msk, x, semiring="min_add"), (on,))
+            calls["ell_spmv"] += sessions
+            bins[shape] += sessions
+            _expect_kernels(names, (on,), (off,), k)
     lanes_on = lanes > 1
-    assert LANE_LAUNCHES["ell_spmv"] == lane_before["ell_spmv"] + \
-        lanes_on * (LAUNCHES["ell_spmv"] - before["ell_spmv"])
-    assert LANE_LAUNCHES["min_step"] == lane_before["min_step"] + \
-        lanes_on * (LAUNCHES["min_step"] - before["min_step"])
+    for name, n in calls.items():
+        assert LAUNCHES[name] == before[name] + n, (name, n)
+        if name != "graph_loop":
+            assert LANE_LAUNCHES[name] == lane_before[name] + lanes_on * n
+    for shape, n in bins.items():
+        key = f"ell_spmv {shape}"
+        assert LANE_LAUNCHES.get(key, 0) == \
+            lane_before.get(key, 0) + lanes_on * n, (key, n)

@@ -34,8 +34,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
-import shutil
 import subprocess
 import sys
 
@@ -52,33 +50,11 @@ SOURCES = ("min_step", "ell_spmv")
 
 def build_variants(out: str) -> dict:
     """{variant: {kernel: CDLL}}; raises with nvcc's output on a failure."""
-    from repro_torch.kernels.build import CSRC, NVCC_FLAGS, _nvcc
-    procs = {}
-    for name, (const, value) in VARIANTS.items():
-        d = os.path.join(out, name)
-        os.makedirs(d, exist_ok=True)
-        for f in CSRC.iterdir():
-            if f.suffix in (".cu", ".cuh"):
-                shutil.copy(f, d)
-        hdr = os.path.join(d, "ell_row.cuh")
-        text = open(hdr).read()
-        pat = rf"(constexpr \w+ {const} = )[^;]+;"
-        if len(re.findall(pat, text)) != 1:
-            raise RuntimeError(f"ell_row.cuh no longer defines {const}")
-        with open(hdr, "w") as f:
-            f.write(re.sub(pat, rf"\g<1>{value};", text))
-        for src in SOURCES:
-            so = os.path.join(d, f"lib{src}.so")
-            procs[name, src] = (so, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", so, os.path.join(d, f"{src}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for (name, src), (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name} {src}:\n{log}")
-        libs.setdefault(name, {})[src] = ctypes.CDLL(so)
-    return libs
+    from repro_torch.kernels.build import CSRC
+    from variant_build import build_variants as build
+    return build(out, {(name, src): (str(CSRC), [("ell_row.cuh", const, value)])
+                       for name, (const, value) in VARIANTS.items()
+                       for src in SOURCES})
 
 
 def launchers(libs):

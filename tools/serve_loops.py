@@ -47,11 +47,13 @@ sys.path.insert(0, ROOT)
 GROUPS = (("copies", ("memcpy", "Memcpy")),
           ("casts", ("direct_copy_kernel",)),
           ("min_step", ("min_step",)),
-          ("ell_spmv", ("ell_spmv",)),
+          ("pr_step", ("pr_step",)),
+          ("ell_spmv_wide", ("ell_warp_rows_kernel", "ell_block_rows_kernel")),
+          ("ell_spmv", ("graphhp::ell_",)),
           ("set_condition", ("graphhp_set_condition",)))
 
 
-def _group(name: str) -> str:
+def kernel_group(name: str) -> str:
     for group, keys in GROUPS:
         if any(k in name for k in keys):
             return group
@@ -112,7 +114,7 @@ def _profile(graph, sources, iters: int, host: bool) -> dict:
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     for e in rows:
-        g = _group(e.key)
+        g = kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
         calls[g] = calls.get(g, 0) + e.count
     busy = sum(groups.values()) / 1e3
