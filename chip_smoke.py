@@ -11,14 +11,16 @@ Phases, one line each (any failure exits non-zero and prints no result):
               with nvcc (one process per source, in parallel): the three
               kernels and ``graph_loop``, the device loop's WHILE node.
 2a. sweep   — both ``ell_spmv`` paths (K = 7, 8, 16; 128; 300, 7,056,
-              32,897), ``min_step`` (K = 7, 8, 16) and every ``pr_step``
-              path (K = 7, 8, 16, 300) on synthetic tiles, aligned and one
-              row or one element into larger buffers, against their plain
-              versions: every semiring, (N,), (N, 4), (N, 6), (N, 16) and
-              (N, 64) frontiers,
+              32,897, 66,000, the wide ones through a block plan built
+              once per tile), ``min_step`` (K = 7, 8, 16) and every
+              ``pr_step`` path (K = 7, 8, 16, 300) on synthetic tiles,
+              aligned and one row or one element into larger buffers,
+              against their plain versions: every semiring, (N,), (N, 4),
+              (N, 6), (N, 16) and (N, 64) frontiers,
               1 % / 50 % / 100 % occupancy and empty fold blocks between
-              occupied ones, signed zeros, ±inf ties and NaN; bit-identical,
-              NaN by position only.
+              occupied ones (on the wide tiles also leading and trailing
+              them), signed zeros, ±inf ties and NaN; bit-identical, NaN
+              by position only.
 3. graphs   — builds the two main-path graphs on the host and moves them
               to the card: SSSP on a 2048 x 2048 road-like grid (4,194,304
               vertices, 16,769,024 weighted edges, 8 x 8 geographic tiles,
@@ -88,7 +90,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
               ``library_device_ms``: a CUDA graph of a run of calls over
               copies of the operands, replayed), the plain version call by
               call, beside the bound the card's memory rate and float32
-              rate set for the same work.  Also the serving shapes:
+              rate set for the same work (on the wide bins, K > 128, the
+              bound of the planned design, which reads the block plan in
+              place of the mask, beside the mask-streaming one; with each
+              plan's entries, bytes and build seconds), and each bin's
+              launches on the main path (``BIN_LAUNCHES``).  Also the serving shapes:
               ``min_step`` and ``ell_spmv`` on the grid's base bin and
               ``pr_step`` (L = 4 and 16) and ``ell_spmv`` (L = 16, beside
               ``torch.sparse.mm`` with a dense (N, 16) operand) on R-MAT's,
@@ -511,7 +517,8 @@ def run_counted(phase, app, engine, graph, prog, use_ell=True, vdata=None,
     from repro_torch import run_am, run_bsp, run_hybrid
     from repro_torch.exec.device_loop import BUILDS, reset_builds
     from repro_torch.exec.syncs import host_reads, reset_host_reads
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.common import (BIN_LAUNCHES, LAUNCHES,
+                                            reset_launches)
 
     runner = {"hybrid": run_hybrid, "bsp": run_bsp, "am": run_am}[engine]
     loop = "device" if engine == "hybrid" and kw.get("device_loop", True) \
@@ -528,6 +535,7 @@ def run_counted(phase, app, engine, graph, prog, use_ell=True, vdata=None,
     launches = dict(LAUNCHES)
     syncs = host_reads()
     builds = dict(BUILDS)
+    bins = dict(BIN_LAUNCHES)
     c = es.counters
     counters = dict(iterations=int(c.iterations),
                     pseudo_supersteps=int(c.pseudo_supersteps.sum()),
@@ -542,10 +550,11 @@ def run_counted(phase, app, engine, graph, prog, use_ell=True, vdata=None,
             build_s=f"{builds['capture_s'] + builds['instantiate_s']:.3f}",
             peak_device_GiB=f"{peak:.2f}",
             host_syncs=syncs, launches=json.dumps(launches).replace(" ", ""),
+            bin_launches=json.dumps(bins).replace(" ", ""),
             counters=json.dumps(counters).replace(" ", ""))
     return es, dict(iterations=iters, run_s=secs, peak_device_GiB=peak,
-                    host_syncs=syncs, launches=launches, counters=counters,
-                    loop=loop, builds=builds)
+                    host_syncs=syncs, launches=launches, bin_launches=bins,
+                    counters=counters, loop=loop, builds=builds)
 
 
 def start_main_oracles(pool, wd, sssp_data, pr_data):
@@ -1093,9 +1102,13 @@ def _same_nan_flag(a, b):
 # (K, rows, frontier lanes) of the ell_spmv tiles, lanes 0 for an (N,)
 # frontier: the narrow path (K = 7 takes the scalar fallback, 8 and 16 the
 # unrolled rows), a warp per row (128; two rows a warp on an (N,) frontier
-# from 33,792 rows on, four per warp the card holds), a block per row with
-# a ragged last fold block (300), the local hub bin's width, and 258 fold
-# blocks (more than the 256 a round holds, the last one slot wide).  On
+# from 33,792 rows on, four per warp the card holds), the block plan's
+# paths (K > 128: a warp per occupied fold block at L = 1, a block per row
+# otherwise) with a ragged last fold block (300), the local hub bin's
+# width, 258 fold blocks (more than the 256 a round of the lane path
+# holds, the last one slot wide) and 516 (K > 32,768, two rounds and more
+# of occupied blocks, gaps across them).  Each wide tile's plan is built
+# once and serves every semiring.  On
 # the wide bins (K >= 128) 4 and 6 lanes take 4-lane chunks of scalar
 # gathers (6: two chunks), 16 (the serving layer's widest batch) and 64
 # the lane path (16 lanes a pass, 16-byte gathers; 64: four passes).  On the narrow
@@ -1105,7 +1118,8 @@ def _same_nan_flag(a, b):
 SWEEP_SPMV = ((7, 512, (0, 4, 6, 16, 64)), (8, 512, (0, 4, 6, 16, 64)),
               (16, 512, (0, 4, 6, 16, 64)), (128, 512, (0, 4, 6, 16, 64)),
               (128, 40000, (0, 4, 6, 16, 64)), (300, 256, (0, 4, 6, 16, 64)),
-              (7056, 32, (0, 4, 6, 16, 64)), (32897, 8, (0, 6, 16, 64)))
+              (7056, 32, (0, 4, 6, 16, 64)), (32897, 8, (0, 6, 16, 64)),
+              (66000, 4, (0, 16)))
 SWEEP_MIN_STEP = ((7, 512), (8, 512), (16, 512))
 SWEEP_MIN_STEP_LANES = (0, 4, 6, 16, 64)
 # (K, rows, frontier lanes) of the pr_step tiles: the rows path
@@ -1131,22 +1145,33 @@ SWEEP_LANE_OFFSETS = {o: (o, o) for o in SWEEP_OFFSETS}
 SWEEP_LANE_OFFSETS["tile"] = ("element", "none")
 SWEEP_PR_STEP_OFFSETS = {**SWEEP_LANE_OFFSETS, "word": ("word", "none")}
 SWEEP_FILLS = {"1%": 0.01, "50%": 0.5, "100%": 1.0, "gaps": 0.5}
+# the wide ell_spmv tiles (K > 128) also: all-padding fold blocks leading a
+# row, trailing it, or both, around occupied ones with gaps (their block
+# plans leave them out)
+SWEEP_WIDE_FILLS = {**SWEEP_FILLS, "ends": 0.5}
 SWEEP_N = 4096            # frontier length
 
 
 def _sweep_tile(gen, rows, k, fill, n):
     """idx/msk of a synthetic tile.  ``gaps``: every third fold block (or
     4-slot chunk, below 128 slots) and every fifth row all padding, between
-    occupied ones."""
+    occupied ones.  ``ends`` (K > 128): the gaps, and the first two fold
+    blocks of every row r with r % 3 != 1 and the last two of every row
+    with r % 3 != 0 all padding."""
     import torch
     idx = torch.randint(0, n, (rows, k), generator=gen, device="cuda",
                         dtype=torch.int32)
     msk = torch.rand((rows, k), generator=gen, device="cuda") < \
-        SWEEP_FILLS[fill]
-    if fill == "gaps":
+        SWEEP_WIDE_FILLS[fill]
+    if fill in ("gaps", "ends"):
         chunk = torch.arange(k, device="cuda") // (128 if k >= 128 else 4)
         msk &= (chunk % 3 != 1)[None, :]
         msk &= (torch.arange(rows, device="cuda") % 5 != 0)[:, None]
+    if fill == "ends":
+        r3 = (torch.arange(rows, device="cuda") % 3)[:, None]
+        last = int(chunk[-1])
+        msk &= ~((chunk[None, :] < 2) & (r3 != 1))
+        msk &= ~((chunk[None, :] > last - 2) & (r3 != 0))
     return idx, msk
 
 
@@ -1223,14 +1248,18 @@ def phase_sweep():
     """Each kernel path against its plain version on synthetic tiles: every
     semiring, (N,), (N, 4), (N, 6), (N, 16) and (N, 64) frontiers
     (``SWEEP_SPMV``, ``SWEEP_MIN_STEP_LANES``, ``SWEEP_PR_STEP``), 1 %,
-    50 %, 100 % occupancy and all-padding blocks between occupied ones,
-    signed zeros and ±inf ties, every case also on tiles and frontiers
+    50 %, 100 % occupancy and all-padding blocks between occupied ones
+    (on the wide ``ell_spmv`` tiles also leading and trailing them: their
+    block plans leave them out), signed zeros and ±inf ties, every case
+    also on tiles and frontiers
     offset into larger buffers (``SWEEP_LANE_OFFSETS``).  Bit-identical,
     NaN by position only (``_same_nan``, each case's verdict kept on the
     card and all read at the end)."""
     import torch
-    from repro_torch.kernels.common import MONOTONE_SEMIRINGS, SEMIRINGS
-    from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
+    from repro_torch.kernels.common import (FOLD_SLICES, MONOTONE_SEMIRINGS,
+                                            SEMIRINGS)
+    from repro_torch.kernels.ell_spmv import (ell_block_plan, ell_spmv,
+                                              ell_spmv_ref)
     from repro_torch.kernels.min_step import (fused_min_step,
                                               fused_min_step_ref)
     from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
@@ -1254,19 +1283,21 @@ def phase_sweep():
             # row alone, so each case's rows are its own result)
             cases, got = [], {sr: [] for sr in SEMIRINGS}
             xshape = (SWEEP_N, lanes) if lanes else (SWEEP_N,)
+            fills = SWEEP_WIDE_FILLS if k > FOLD_SLICES else SWEEP_FILLS
             for fill, mode, offset in (
-                    (f, m, o) for f in SWEEP_FILLS
+                    (f, m, o) for f in fills
                     for m in ("zeros", "infs") for o in SWEEP_LANE_OFFSETS):
                 tile_off, front_off = SWEEP_LANE_OFFSETS[offset]
                 idx, msk = _sweep_tile(gen, rows, k, fill, SWEEP_N)
                 val = _sweep_values(gen, (rows, k), mode, neg_rows=True)
                 idx, val, msk = (_offset(t, tile_off) for t in (idx, val, msk))
+                plan = ell_block_plan(msk) if k > FOLD_SLICES else None
                 xs = {}
                 for sr in SEMIRINGS:
                     xs[sr] = _offset(_sweep_values(gen, xshape, mode,
                                                    keep_sign[sr]), front_off)
                     got[sr].append(ell_spmv(idx, val, msk, xs[sr],
-                                            semiring=sr))
+                                            semiring=sr, plan=plan))
                 cases.append((f"{fill} {mode} L={lanes}", offset, idx, val,
                               msk, xs))
             shift = torch.arange(len(cases), device="cuda",
@@ -1325,7 +1356,7 @@ def phase_sweep():
 
 
 def _bound_ms(msk, idx, rows_bytes, ops_per_slot, flag=None,
-              x_is_row=False, lanes=1):
+              x_is_row=False, lanes=1, plan=None):
     """Least time for the work these inputs need, over the HBM rate: each
     mask byte, the idx/val words of occupied slots, ``rows_bytes`` of row
     operands and outputs per row, and the frontier entries of the distinct
@@ -1335,12 +1366,20 @@ def _bound_ms(msk, idx, rows_bytes, ops_per_slot, flag=None,
     only where the flag is set; where the value vector is also the row
     operand (``x_is_row``, the engine's ``xrow = x``) those words are
     already counted per row.  Against that, the per-slot operations of
-    every lane over the float32 rate."""
+    every lane over the float32 rate.  With the block ``plan`` of a wide
+    bin, the planned design's floor: the plan in place of the mask, its
+    ptr, and per occupied fold block its index, occupancy bits and (at
+    L = 1, a warp per block) row."""
     import torch
     nnz = int(msk.sum())
     src = torch.unique(idx[msk])
     rows = idx.shape[0]
-    nbytes = msk.numel() + 8 * nnz + rows_bytes * rows
+    if plan is None:
+        mask_bytes = msk.numel()
+    else:
+        mask_bytes = 4 * plan.ptr.numel() + plan.nnzb * (
+            4 + 16 + (4 if lanes <= 1 else 0))
+    nbytes = mask_bytes + 8 * nnz + rows_bytes * rows
     if flag is None:
         nbytes += 4 * lanes * src.numel()
     else:
@@ -1371,16 +1410,21 @@ def _csr_library(idx, val, msk, n_cols):
                                        size=(idx.shape[0], n_cols))
 
 
-def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
+def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es,
+                  bin_launches):
     """Every kernel at every main-path shape, against its plain version on
     the same CUDA tensors, and the engine's fused steps (``fused_step_fn``)
-    against the same steps over the plain versions.  Returns (rows of the
-    detailed report, the timed case of each kernel)."""
+    against the same steps over the plain versions.  ``bin_launches``: the
+    main runs' ``ell_spmv`` launches by bin, per app.  Each wide bin's row
+    also gives its block plan (entries, bytes, build seconds) and the
+    mask-streaming bound beside the planned one (``bound_ms``).  Returns
+    (rows of the detailed report, the timed case of each kernel)."""
     import torch
-    from repro_torch.core.runtime import slice_flat
+    from repro_torch.core.runtime import ell_plans, slice_flat
     from repro_torch.exec.local_phase import _spill_extra, fused_step_fn
     from repro_torch.kernels.common import SEMIRINGS
-    from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref
+    from repro_torch.kernels.ell_spmv import (ell_block_plan, ell_spmv,
+                                              ell_spmv_ref)
     from repro_torch.kernels.min_step import (fused_min_step,
                                               fused_min_step_ref)
     from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
@@ -1392,18 +1436,20 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
         return torch.rand(shape, generator=gen, device="cuda") < 0.5
 
     def case(name, label, call, ops, ref, bound, library=None,
-             lib_ops=(), reps=20, plain_reps=2):
+             lib_ops=(), reps=20, plain_reps=2, extra=None):
         """``call(*ops)`` against ``ref(*ops)``.  ``ms``/``library_ms``:
         calls issued one by one from Python on warm operands (the meter of
         the first port's table); ``device_ms``/``library_device_ms``: the
-        same calls replayed from a CUDA graph on cold operands."""
+        same calls replayed from a CUDA graph on cold operands (a block
+        plan in ``call`` stays warm: it is not an operand).  ``extra``
+        joins the row."""
         fn = lambda: call(*ops)
         got, want = fn(), ref(*ops)
         sync()
         same = _same(got, want)
         err = _max_abs_err(got, want)
         row = dict(name=name, shape=label, bit_identical=same,
-                   max_abs_err=err)
+                   max_abs_err=err, **(extra or {}))
         row["bound_ms"], row["bound_by"], row["bytes"], row["nnz"] = bound
         row["ms"] = time_ms(fn, reps)
         row["device_ms"] = device_ms(call, ops, row["bytes"], reps)
@@ -1485,6 +1531,29 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
         ident = SEMIRINGS[semiring][2]
         return torch.where(rand_send(x.shape), x, ident).contiguous()
 
+    def wide_plan(graph, edges, b, idx, msk, lanes=1):
+        """The graph's block plan of a wide bin (None for K <= 128), held
+        against one built anew here (its build seconds), and the row's
+        plan fields: entries, bytes, build seconds, the mask-streaming
+        bound beside the planned one."""
+        plan = ell_plans(graph, edges)[b]
+        if plan is None:
+            return None, {}
+        sync()
+        t = time.perf_counter()
+        fresh = ell_block_plan(msk)
+        sync()
+        build_s = time.perf_counter() - t
+        if not (_same(plan.ptr, fresh.ptr) and _same(plan.blk, fresh.blk)
+                and _same(plan.row, fresh.row)):
+            raise AssertionError(f"{edges} bin{b}: the graph's block plan "
+                                 f"is not its mask's")
+        extra = dict(nnzb=plan.nnzb, plan_bytes=plan.nbytes,
+                     plan_build_s=build_s,
+                     mask_bound_ms=_bound_ms(msk, idx, 4 * lanes, 2,
+                                             lanes=lanes)[0])
+        return plan, extra
+
     for app, graph, es, name, sr in (
             ("sssp", sssp_graph, sssp_es, "dist", "min_add"),
             ("pagerank", pr_graph, pr_es, "delta", "add_mul")):
@@ -1501,15 +1570,20 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
                     lib_ops = (_csr_library(idx, val, msk, x.shape[0]),
                                x[:, None])
                 long_row = s.kb > 1024
+                plan, extra = wide_plan(graph, edges, b, idx, msk)
+                # the main run's launches of this bin (an (N,) frontier)
+                extra["launches"] = bin_launches[app].get(
+                    f"ell_spmv {idx.shape[0]}x{idx.shape[1]}", 0)
                 row = case(
                     "ell_spmv", f"{app} {edges} bin{b} {tuple(idx.shape)}",
-                    lambda *a, sr=sr: ell_spmv(*a, semiring=sr),
+                    lambda *a, sr=sr, plan=plan: ell_spmv(*a, semiring=sr,
+                                                          plan=plan),
                     (idx, val, msk, x),
                     lambda *a, sr=sr: ell_spmv_ref(*a, semiring=sr),
-                    _bound_ms(msk, idx, 4, 2),
+                    _bound_ms(msk, idx, 4, 2, plan=plan),
                     library=lib, lib_ops=lib_ops,
                     reps=5 if long_row else 20,
-                    plain_reps=1 if long_row else 2)
+                    plain_reps=1 if long_row else 2, extra=extra)
                 # the ell_spmv of the JSON line: the PageRank local phase's
                 # widest spill bin, launched every pseudo-superstep
                 if app == "pagerank" and edges == "local" and not s.dense:
@@ -1577,16 +1651,18 @@ def kernel_checks(sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es):
             _, idx, msk = slice_flat(s, pr_graph, p)
             val = pr_prog.ell_edge_values(pr_prog.channels[0], s.val) \
                 .reshape(-1, s.kb)
+            plan, extra = wide_plan(pr_graph, edges, b, idx, msk, lanes=L)
             row = case(
                 "ell_spmv",
                 f"pagerank {edges} bin{b} {tuple(idx.shape)}, L={L}",
-                lambda *a: ell_spmv(*a, semiring="add_mul"),
+                lambda *a, plan=plan: ell_spmv(*a, semiring="add_mul",
+                                               plan=plan),
                 (idx, val, msk, xl),
                 lambda *a: ell_spmv_ref(*a, semiring="add_mul"),
-                _bound_ms(msk, idx, 4 * L, 2, lanes=L),
+                _bound_ms(msk, idx, 4 * L, 2, lanes=L, plan=plan),
                 library=torch.sparse.mm,
                 lib_ops=(_csr_library(idx, val, msk, n_src), xl),
-                reps=5, plain_reps=1)
+                reps=5, plain_reps=1, extra=extra)
             row["lane_key"] = f"ell_spmv {idx.shape[0]}x{idx.shape[1]}"
         del xl
 
@@ -4250,8 +4326,9 @@ def main() -> int:
     del sssp_dijkstra
     lap("dist")
 
-    report, timed = kernel_checks(sssp_graph, sssp_prog, sssp_es,
-                                  pr_graph, pr_prog, pr_es)
+    report, timed = kernel_checks(
+        sssp_graph, sssp_prog, sssp_es, pr_graph, pr_prog, pr_es,
+        {"sssp": sssp_run["bin_launches"], "pagerank": pr_run["bin_launches"]})
     timed["graph_loop"] = dloop["toy"]
     lap("kernels")
     profiles = dict(

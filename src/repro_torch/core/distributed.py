@@ -62,7 +62,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint.ckpt import _flatten_with_names, _unflatten
 from repro_torch.core.graph import EllSlice, PartitionedGraph
 from repro_torch.core.runtime import (Counters, EngineState, block_flat,
-                                      quiescent)
+                                      build_ell_plans, quiescent)
 from repro_torch.core.vertex_program import VertexProgram
 from repro_torch.device import resolve_device
 from repro_torch.exec.driver import run_engine
@@ -352,6 +352,8 @@ class DistHybridStep:
         return self._step(graph, es)
 
     def init(self, graph: PartitionedGraph, vdata: Any = None) -> EngineState:
+        if self.use_ell:
+            build_ell_plans(graph)    # before any capture reads them
         return dist_init(graph, self.prog,
                          self.vdata if vdata is None else vdata, self.group,
                          use_ell=self.use_ell,

@@ -30,7 +30,10 @@ from repro_torch.core.graph import EllSlice, PartitionedGraph
 from repro_torch.core.vertex_program import (Channel, SegmentPlan, StepInfo,
                                              VertexProgram, combine_segments,
                                              segment_plan, segment_sum)
-from repro_torch.kernels.common import SEMIRINGS, maximum, minimum
+from repro_torch.kernels.common import (FOLD_SLICES, SEMIRINGS, maximum,
+                                        minimum)
+from repro_torch.kernels.ell_spmv.plan import (ell_block_plan,
+                                               stream_capturing)
 
 __all__ = ["Counters", "EngineState", "init_state", "exchange",
            "WIRE_DTYPES", "deliver",
@@ -38,7 +41,7 @@ __all__ = ["Counters", "EngineState", "init_state", "exchange",
            "ell_channels", "ell_f32_exact", "ell_slices", "slice_flat",
            "block_flat",
            "ell_combine_bins", "ell_send_accounting", "ell_group_accounting",
-           "DensePlan", "dense_plan"]
+           "ell_plans", "build_ell_plans", "DensePlan", "dense_plan"]
 
 
 def _map(fn, *trees: dict) -> dict:
@@ -293,20 +296,53 @@ def _scatter(semiring: str, y: torch.Tensor, rows: torch.Tensor,
     return ext[:n]
 
 
-def ell_combine_bins(prog, ch, slices, views, x, y, spmv=None):
+def ell_plans(graph: PartitionedGraph, edges: str) -> tuple:
+    """The block plans of ``edges``' ELL bins, one per bin
+    (:class:`~repro_torch.kernels.ell_spmv.EllBlockPlan`, None for a bin
+    of K <= 128), built from the bins' flat masks at the first call and
+    kept on the graph, as the dense plan is: in ``graph.__dict__``, which
+    ``graph_digest`` does not read and no copy of the graph carries (a
+    copy or a block view builds its own).  The masks never change, so
+    neither do the plans.  A miss under a stream capture raises: building
+    a plan reads the host, so the engines build them first
+    (:func:`build_ell_plans`)."""
+    cache = graph.__dict__.setdefault("_ell_plans", {})
+    plans = cache.get(edges)
+    if plans is None:
+        if stream_capturing():
+            raise RuntimeError(
+                f"the graph's {edges} ELL block plans were not built before "
+                f"this stream capture: call build_ell_plans(graph) first")
+        plans = tuple(ell_block_plan(s.msk.reshape(-1, s.kb))
+                      if s.kb > FOLD_SLICES else None
+                      for s in ell_slices(graph, edges))
+        cache[edges] = plans
+    return plans
+
+
+def build_ell_plans(graph: PartitionedGraph) -> None:
+    """Build (once) the block plans of both edge sides' bins: where a
+    graph enters an engine, before any capture."""
+    for edges in ("local", "remote"):
+        ell_plans(graph, edges)
+
+
+def ell_combine_bins(prog, ch, slices, views, x, y, spmv=None, plans=None):
     """⊕-combine each bin's ``ell_spmv`` partials onto the flat destination
     vector ``y`` — the dense base bin via the semiring combine, spill bins
     via the semiring scatter over their row lists.  The one implementation
     behind `deliver`'s kernel path and the fused phases' spill operand.
     ``spmv`` replaces the per-bin product (``ell_spmv_ref`` to run the
-    plain version on the same tensors)."""
+    plain version on the same tensors); ``plans`` are the bins' block
+    plans (:func:`ell_plans`, the same bins)."""
     from repro_torch.kernels.ell_spmv import ell_spmv
 
     spmv = spmv or ell_spmv
+    plans = plans or (None,) * len(slices)
     combine, _, _ = SEMIRINGS[ch.semiring]
-    for s, (rows, idx, msk) in zip(slices, views):
+    for s, (rows, idx, msk), plan in zip(slices, views, plans):
         v = prog.ell_edge_values(ch, s.val).reshape(-1, s.kb)
-        yb = spmv(idx, v, msk, x, semiring=ch.semiring)
+        yb = spmv(idx, v, msk, x, semiring=ch.semiring, plan=plan)
         y = combine(y, yb) if s.dense else _scatter(ch.semiring, y, rows, yb)
     return y
 
@@ -384,6 +420,7 @@ def _ell_deliver(graph, prog, chs, es, pending, delivered, collect_metrics,
 
     # has-message flags per destination, shared by every kernel channel
     views = [slice_flat(s, graph, p) for s in slices]
+    plans = ell_plans(graph, edges)
     has_fresh, mem_edges = ell_send_accounting(graph, slices, views,
                                                send_flat, p)
     delivered = torch.logical_or(delivered, torch.any(has_fresh, dim=1))
@@ -399,7 +436,7 @@ def _ell_deliver(graph, prog, chs, es, pending, delivered, collect_metrics,
         x = x.reshape((-1,) + tuple(x.shape[2:])).to(torch.float32)
         y = torch.full((p * vp,) + tuple(x.shape[1:]), ident,
                        dtype=torch.float32, device=dev)
-        y = ell_combine_bins(prog, ch, slices, views, x, y)
+        y = ell_combine_bins(prog, ch, slices, views, x, y, plans=plans)
         y = y.reshape((p, vp) + tuple(y.shape[1:]))
         dt, ident_ch = ch.components[0]
         has_b = has_fresh.reshape(

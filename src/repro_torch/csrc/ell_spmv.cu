@@ -7,18 +7,26 @@
 // fused local phases.  All five semirings, (N,) and (N, L) frontiers.
 //
 // Bound on the H100: bytes.  A slot costs a ⊗ and a ⊕ against 9 bytes of
-// idx/val/mask, far below the card's ~20 float32 operations per byte, so
-// the floor is the mask streamed once, idx/val of the occupied slots, the
-// frontier values of their sources and the outputs.  On the hub bins the
-// mask alone is over 90 % of it: 15,992 × 29,168 mask bytes are 466 MB
-// (0.139 ms at 3.35 TB/s) for 1 % occupied slots.
+// idx/val/mask, far below the card's ~20 float32 operations per byte.  A
+// kernel that reads the mask whole is bound by the mask streamed once,
+// idx/val of the occupied slots, the frontier values of their sources and
+// the outputs.  On the hub bins the mask alone is over 90 % of that:
+// 15,992 × 29,168 mask bytes are 466 MB (0.139 ms at 3.35 TB/s) for 1 %
+// occupied slots, and `torch.sparse.mm` on the bin as a CSR matrix, which
+// never reads padding, beat that bound by 3.3 ×.  So the wide bins (K >
+// 128) read a block plan instead (`kernels/ell_spmv/plan.py`, built once
+// per graph and bin) and no mask byte at all: the planned bound is the
+// plan (16 bytes of occupancy bits and 8 or 12 of indices per occupied
+// fold block), idx/val of the occupied slots, the sources and the
+// outputs.
 //
 // Fold order.  Every path folds in the reference's order: slots
 // sequentially inside each bk = min(128, K) block, block partials left to
 // right — never a tree, for any semiring.  `add_mul` is not associative,
 // and the order also fixes which NaN of several propagates.
 //
-// Two paths, chosen by K in the C entry, one launch either way:
+// Two paths, chosen by K in the C entry, one launch each but for K > 128
+// at L = 1 (two):
 //
 // * Narrow bins (K < 128: the base bins, K = 8 and 16 on the main path).
 //   One thread per row of an (N,) frontier; K is a template parameter (8,
@@ -65,27 +73,49 @@
 //     parallel, twice the loads in flight).  The warps are persistent
 //     (as many blocks as the card holds) and walk their rows with the next
 //     group's mask words in flight while they fold the current one.
-//   - K > 128: a thread block per row.  Its threads first stream the row's
-//     mask, 16 bytes a thread and 8 loads in flight, into one occupancy
-//     bit per fold block; the warps then take the occupied blocks; one
-//     thread per output lane folds the block partials left to right, the
-//     identity partials of empty blocks included — a run of them as one ⊕
-//     identity, since x ⊕ e ⊕ e = x ⊕ e bit for bit.  On the hub bins
-//     (99 % padding) the kernel is then one pass over the mask at nearly
-//     the memory rate, plus the few occupied blocks.
-//     A row of more than 256 fold blocks (K > 32,768) goes in rounds of
-//     256, the left-to-right fold carried from one round to the next.
+//   - K > 128: the block plan lists each row's occupied fold blocks in
+//     block order (a CSR over fold blocks: ptr, blk, each entry's row)
+//     with each block's occupancy as 128 bits, from which a lane makes its
+//     mask word; the mask itself is not read.  The row's block partials
+//     fold left to right, a run of all-padding blocks between, before or
+//     after them as one ⊕ identity, since x ⊕ e ⊕ e = x ⊕ e bit for bit
+//     (a row of no occupied block is e).  The design before gave each row
+//     a thread block that streamed the row's whole mask into occupancy
+//     bits first: one pass over the mask at nearly the memory rate, but
+//     5.5 × the library on the hub bin at L = 1 and, on the local spill
+//     1,720 × 7,056, one thread block a row with the densest row (55 fold
+//     blocks over 7 warps) setting the time (2.9 ×).
+//     L = 1: a warp per plan entry, so the work is balanced over the
+//     bin's occupied blocks, not its rows; each warp leaves its block's
+//     partial in a scratch vector, and a second launch folds each row's
+//     partials in block order, a warp per row, so the result does not
+//     depend on the order in which warps finish.  Measured on the H100 at
+//     700 W (`tools/ab_wide_plan.py`, device ms, hub bin / local spill):
+//     folding a row in the same launch instead, by its last warp to
+//     arrive (an integer counter per row, `__threadfence` before each
+//     arrival), 0.0693–0.0695 / 0.0111–0.0113 against 0.0636–0.0643 /
+//     0.0112–0.0115 for two launches; two or four entries a warp (that
+//     many lanes folding at once) 0.069 / 0.0127–0.0129 and 0.0755 /
+//     0.0129 against 0.0652 / 0.0112–0.0115 for one; the occupancy read
+//     from the mask's 128 bytes instead of the plan's bits 0.0652–0.0655 /
+//     0.0112–0.0115 against 0.0629 / 0.0112–0.0113.
+//     L > 1: a thread block per row takes the row's plan entries in rounds
+//     of kRound (more than 256 occupied blocks: K > 32,768), the warps a
+//     block each, partials in shared memory, one thread per output lane
+//     folding them, the left-to-right fold carried from one round to the
+//     next.  Rounds of 64 or 32 entries (more blocks an SM) gained nothing
+//     (hub 0.303 / 0.309 ms against 0.301 at L = 16).
 //   - Lane path (an (N, L) frontier, L % 4 == 0 beyond four lanes, x
 //     16-byte aligned: the K-lane ppr queries' spill bins).  Bound: the
-//     mask once, idx/val of the occupied slots, 4 L bytes per distinct
-//     source and per row.  The first design took lane chunks of four, one
+//     mask once (the plan at K > 128), idx/val of the occupied slots, 4 L
+//     bytes per distinct source and per row.  The first design took lane chunks of four, one
 //     per blockIdx.y, each chunk scanning the whole mask again and
 //     gathering one float a lane: at L = 16 the hub bin's 466 MB mask was
 //     read four times (1.0619 ms against a 0.1817 ms bound, H100 80GB
 //     HBM3 at 700 W, `tools/ab_ppr_lanes.py`).  Now one block (K > 128)
 //     or warp (K = 128) takes up to kWideLanes = 16 lanes in one pass: the
-//     mask is scanned and the occupied blocks' idx/val loaded once for all
-//     of them.  In an occupied block the warp compacts the occupied slots'
+//     occupied blocks (from the plan at K > 128) and their idx/val are
+//     read once for all of them.  In an occupied block the warp compacts the occupied slots'
 //     (idx, val) in slot order into shared memory, then, kGroup = 32 slots
 //     at a time, gathers every (slot, 4 lanes) as one 16-byte load (at
 //     L = 16 four threads read a source's 64-byte segment, four loads a
@@ -139,7 +169,6 @@ constexpr int kSub = 16;          // lanes of one staged product pass (lane path
 // (lane path): kGroup * kSub / 128 16-byte gathers a lane in flight.
 constexpr int kGroup = 32;
 constexpr int kRound = 256;       // fold-block partials held in shared memory
-constexpr int kScan = 8;          // 16-byte mask loads a thread has in flight
 
 // ---------------------------------------------------------------- narrow --
 
@@ -379,6 +408,15 @@ __device__ __forceinline__ float warp_blocks(const int* ri, const float* rv,
   return part;
 }
 
+// This lane's mask word (its slots 4*lane .. 4*lane+3, a byte each) of plan
+// entry e's fold block, made from the plan's occupancy bits (four words an
+// entry, bit i of word q for slot 32q + i).
+__device__ __forceinline__ unsigned plan_word(const unsigned* bits, long long e,
+                                              int lane) {
+  const unsigned q = (__ldg(bits + 4 * e + (lane >> 3)) >> (4 * (lane & 7))) & 0xfu;
+  return (q & 1u) | ((q & 2u) << 7) | ((q & 4u) << 14) | ((q & 8u) << 21);
+}
+
 // The lane path: one warp's 128-slot fold block for output lanes l0 ..
 // l0+lc-1 at once (lc % 4 == 0).  The block starts at ri / rv and holds
 // min(128, lim) real slots; this lane's mask word is w (its slots 4*lane ..
@@ -544,27 +582,107 @@ ell_warp_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val,
   }
 }
 
-// K > 128: a block per row, in rounds of up to kRound fold blocks.
-// 1. Scan: the block streams the round's mask, 16 bytes a thread per load
-//    and kScan loads in flight, into one occupancy bit per fold block.
-// 2. The warps take the occupied blocks (warp_blocks, one at a time) and
-//    leave their partials in shared memory; nothing else of an
-//    all-padding block is read.
-// 3. One thread per output lane folds the partials left to right; a run
-//    of all-padding blocks is one ⊕ identity (x ⊕ e ⊕ e = x ⊕ e).
-// Vec: the lane path (warp_block_lanes over `lcap` lanes a pass; the
-// block has at least lcap threads).
+// The left-to-right fold of a row's block partials, which the plan lists
+// in block order: block b's partial p after the blocks up to `prev`.  The
+// all-padding blocks between them, which the plan leaves out, enter as one
+// ⊕ identity (x ⊕ e ⊕ e = x ⊕ e bit for bit).
+template <int S>
+__device__ __forceinline__ float fold_part(float acc, int& prev, int b, float p) {
+  using SR = Semiring<S>;
+  if (b > prev + 1) acc = prev < 0 ? SR::ident() : SR::combine(acc, SR::ident());
+  acc = b == 0 ? p : SR::combine(acc, p);
+  prev = b;
+  return acc;
+}
+
+// The row's trailing all-padding blocks (every block of a row the plan
+// lists none of): one ⊕ identity.
+template <int S>
+__device__ __forceinline__ float fold_end(float acc, int prev, int nb) {
+  using SR = Semiring<S>;
+  if (prev == nb - 1) return acc;
+  return prev < 0 ? SR::ident() : SR::combine(acc, SR::ident());
+}
+
+// One warp folds a row's block partials part[e0 .. e1) (of the blocks
+// blk[e0 .. e1)) left to right: each lane loads one entry of a pass of 32,
+// then every lane runs the same chain over the pass by shuffles.
+template <int S>
+__device__ __forceinline__ float fold_parts(const int* blk, const float* part,
+                                            int e0, int e1, int nb, int lane) {
+  float acc = Semiring<S>::ident();
+  int prev = -1;
+  for (int c = e0; c < e1; c += 32) {
+    const int m = min(32, e1 - c);
+    int b = 0;
+    float p = 0.0f;
+    if (lane < m) {
+      b = __ldg(blk + c + lane);
+      p = part[c + lane];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int bj = __shfl_sync(kFullWarp, b, j);
+      const float pj = __shfl_sync(kFullWarp, p, j);
+      if (j < m) acc = fold_part<S>(acc, prev, bj, pj);
+    }
+  }
+  return fold_end<S>(acc, prev, nb);
+}
+
+// K > 128 at L = 1: a warp per plan entry e (an occupied fold block of row
+// row[e]), its block's partial left in part[e].
+template <int S>
+__global__ void __launch_bounds__(kWarps * 32)
+ell_plan_blocks_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                       const float* __restrict__ x, const int* __restrict__ blk,
+                       const int* __restrict__ row,
+                       const unsigned* __restrict__ bits, int nnzb, int k_slots,
+                       float* __restrict__ part) {
+  __shared__ __align__(16) float stage[kWarps * kFold];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * kWarps + warp;
+  if (e >= nnzb) return;                                 // warp-uniform
+  const int b = blk[e];
+  const long long at = static_cast<long long>(row[e]) * k_slots + b * kFold;
+  const unsigned w[1] = {plan_word(bits, e, lane)};
+  int n;
+  const float p = warp_blocks<S, 1>(idx + at, val + at, k_slots - b * kFold, w, x,
+                                    1, 0, 1, stage + warp * kFold, lane, &n);
+  if (lane == 0) part[e] = p;
+}
+
+// Then each row's fold, a warp per row; a row of no occupied block is the
+// ⊕ identity.
+template <int S>
+__global__ void __launch_bounds__(kWarps * 32)
+ell_plan_fold_kernel(const int* __restrict__ ptr, const int* __restrict__ blk,
+                     const float* __restrict__ part, float* __restrict__ y,
+                     long long rows, int nb) {
+  const int lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;                                 // warp-uniform
+  const float acc = fold_parts<S>(blk, part, ptr[r], ptr[r + 1], nb, lane);
+  if (lane == 0) y[r] = acc;
+}
+
+// K > 128 with an (N, L) frontier: a block per row (and pass of lcap
+// lanes), in rounds of up to kRound of the row's plan entries.
+// 1. The warps take the round's occupied fold blocks (warp_blocks, one at
+//    a time; Vec: warp_block_lanes over `lcap` lanes a pass, the block has
+//    at least lcap threads) and leave their partials in shared memory.
+// 2. One thread per output lane folds them left to right (fold_part), the
+//    fold carried from one round to the next.
 template <int S, bool Vec>
 __global__ void __launch_bounds__(kWarps * 32)
 ell_block_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val,
-                      const unsigned char* __restrict__ msk,
                       const float* __restrict__ x, float* __restrict__ y,
-                      int k_slots, int lanes, int lcap) {
+                      const int* __restrict__ ptr, const int* __restrict__ blk,
+                      const unsigned* __restrict__ bits, int k_slots, int lanes,
+                      int lcap) {
   using SR = Semiring<S>;
   extern __shared__ __align__(16) float smem[];
-  __shared__ unsigned busy[kRound / 32];
-  __shared__ short list[kRound];
-  __shared__ int n_busy;
+  __shared__ int list[kRound];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const long long r = blockIdx.x;
@@ -578,61 +696,21 @@ ell_block_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val
   const long long base = r * k_slots;
   const int* ri = idx + base;
   const float* rv = val + base;
-  const unsigned char* rm = msk + base;
   const int nb = (k_slots + kFold - 1) / kFold;
+  const int e0 = ptr[r], e1 = ptr[r + 1];
 
   float acc = SR::ident();
-  for (int c0 = 0; c0 < nb; c0 += kRound) {
-    const int cn = min(kRound, nb - c0);
-    for (int t = threadIdx.x; t < kRound / 32; t += blockDim.x) busy[t] = 0;
+  int prev = -1;                                         // the last block folded
+  for (int c0 = e0; c0 < e1; c0 += kRound) {
+    const int cn = min(kRound, e1 - c0);
+    for (int t = threadIdx.x; t < cn; t += blockDim.x) list[t] = blk[c0 + t];
     __syncthreads();
-    // 1. occupancy bits of the round's fold blocks
-    const unsigned char* p = rm + c0 * kFold;
-    const int len = min(cn * kFold, k_slots - c0 * kFold);
-    int done = 0;
-    if (aligned(p, 16)) {
-      const int n16 = len / 16;                          // 8 per fold block
-      for (int q0 = warp * 32; q0 < n16; q0 += 32 * nw * kScan) {
-        uint4 m[kScan];
-#pragma unroll
-        for (int u = 0; u < kScan; ++u) {
-          const int q = q0 + u * 32 * nw + lane;
-          m[u] = q < n16 ? __ldcs(reinterpret_cast<const uint4*>(p) + q)
-                         : make_uint4(0u, 0u, 0u, 0u);
-        }
-#pragma unroll
-        for (int u = 0; u < kScan; ++u) {
-          const unsigned nz = __ballot_sync(
-              kFullWarp, (m[u].x | m[u].y | m[u].z | m[u].w) != 0u);
-          const int b = (q0 + u * 32 * nw) / 8;            // lane 0's block
-          if (lane == 0 && nz) {
-            unsigned bits = 0;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) bits |= ((nz >> (8 * g)) & 0xffu ? 1u : 0u) << g;
-            atomicOr(&busy[b >> 5], bits << (b & 31));
-          }
-        }
-      }
-      done = n16 * 16;
-    }
-    for (int t = done + threadIdx.x; t < len; t += blockDim.x)
-      if (p[t]) atomicOr(&busy[(t / kFold) >> 5], 1u << ((t / kFold) & 31));
-    __syncthreads();
-    // the occupied blocks, in order
-    if (threadIdx.x == 0) {
-      int k = 0;
-      for (int wd = 0; wd < kRound / 32; ++wd)
-        for (unsigned bits = busy[wd]; bits; bits &= bits - 1)
-          list[k++] = static_cast<short>(wd * 32 + __ffs(bits) - 1);
-      n_busy = k;
-    }
-    __syncthreads();
-    // 2. the occupied blocks, a warp each
-    for (int e = warp; e < n_busy; e += nw) {
-      const int b = c0 + list[e];
-      const unsigned w[1] = {mask_word(rm, k_slots, b * kFold + 4 * lane)};
+    // 1. the round's occupied blocks, a warp each
+    for (int e = warp; e < cn; e += nw) {
+      const int b = list[e];
+      const unsigned w[1] = {plan_word(bits, c0 + e, lane)};
       if constexpr (Vec) {
-        float* pb = parts + list[e] * lc;
+        float* pb = parts + e * lc;
         warp_block_lanes<S>(ri + b * kFold, rv + b * kFold, k_slots - b * kFold,
                             w[0], x, lanes, l0, lc, stage + warp * kGroup * kSub,
                             slots + warp * kFold, lane,
@@ -643,28 +721,17 @@ ell_block_rows_kernel(const int* __restrict__ idx, const float* __restrict__ val
                                              k_slots - b * kFold, w, x, lanes,
                                              l0, lc, stage + warp * kFold * lcap,
                                              lane, &n);
-        if (lane < lc) parts[list[e] * lc + lane] = part;
+        if (lane < lc) parts[e * lc + lane] = part;
       }
     }
     __syncthreads();
-    // 3. partials left to right
-    if (threadIdx.x < lc) {
-      int j = 0;
-      while (j < cn) {
-        const unsigned word = busy[j >> 5] >> (j & 31);
-        if (word & 1u) {
-          const float pj = parts[j * lc + threadIdx.x];
-          acc = (c0 + j == 0) ? pj : SR::combine(acc, pj);
-          ++j;
-        } else {                                         // a run of empties
-          acc = (c0 + j == 0) ? SR::ident() : SR::combine(acc, SR::ident());
-          j += word ? __ffs(word) - 1 : 32 - (j & 31);
-        }
-      }
-    }
+    // 2. partials left to right
+    if (threadIdx.x < lc)
+      for (int e = 0; e < cn; ++e)
+        acc = fold_part<S>(acc, prev, list[e], parts[e * lc + threadIdx.x]);
     __syncthreads();
   }
-  if (threadIdx.x < lc) y[r * lanes + l0 + threadIdx.x] = acc;
+  if (threadIdx.x < lc) y[r * lanes + l0 + threadIdx.x] = fold_end<S>(acc, prev, nb);
 }
 
 // ---------------------------------------------------------------- launch --
@@ -762,10 +829,34 @@ void launch_warp_rows(const int* idx, const float* val, const unsigned char* msk
     launch_rows_per_warp<S, 1, false>(idx, val, msk, x, y, rows, lanes, lcap, sms, stream);
 }
 
+// The block plan of a K > 128 bin (`kernels/ell_spmv/plan.py`) and the
+// L = 1 path's scratch `part` of nnzb floats.
+struct BlockPlan {
+  const int* ptr;
+  const int* blk;
+  const int* row;
+  long long nnzb;
+  float* part;
+  const unsigned* bits;
+};
+
+template <int S>
+void launch_planned(const int* idx, const float* val, const float* x, float* y,
+                    long long rows, int k_slots, const BlockPlan& plan,
+                    cudaStream_t stream) {
+  const int nnzb = static_cast<int>(plan.nnzb);
+  if (nnzb > 0)
+    ell_plan_blocks_kernel<S><<<(nnzb + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+        idx, val, x, plan.blk, plan.row, plan.bits, nnzb, k_slots, plan.part);
+  ell_plan_fold_kernel<S><<<static_cast<unsigned>((rows + kWarps - 1) / kWarps),
+                            kWarps * 32, 0, stream>>>(
+      plan.ptr, plan.blk, plan.part, y, rows, (k_slots + kFold - 1) / kFold);
+}
+
 template <int S>
 void launch(const void* idx_, const void* val_, const void* msk_,
             const void* x_, void* y_, long long rows, long long n_src,
-            int k_slots, int lanes, cudaStream_t stream) {
+            int k_slots, int lanes, const BlockPlan& plan, cudaStream_t stream) {
   const int* idx = static_cast<const int*>(idx_);
   const float* val = static_cast<const float*>(val_);
   const unsigned char* msk = static_cast<const unsigned char*>(msk_);
@@ -784,6 +875,10 @@ void launch(const void* idx_, const void* val_, const void* msk_,
     launch_warp_rows<S>(idx, val, msk, x, y, rows, lanes, lcap, vec, stream);
     return;
   }
+  if (lanes == 1) {
+    launch_planned<S>(idx, val, x, y, rows, k_slots, plan, stream);
+    return;
+  }
   const int nb = (k_slots + kFold - 1) / kFold;
   int nw = std::max(1, std::min(kWarps, (nb + 7) / 8));
   if (vec) nw = std::max(nw, (lcap + 31) / 32);          // a thread per lane
@@ -793,29 +888,42 @@ void launch(const void* idx_, const void* val_, const void* msk_,
                           : sizeof(float) * (nw * kFold + kRound) * lcap;
   auto kernel = vec ? ell_block_rows_kernel<S, true> : ell_block_rows_kernel<S, false>;
   allow_smem(kernel, smem);
-  kernel<<<grid, nw * 32, smem, stream>>>(idx, val, msk, x, y, k_slots, lanes, lcap);
+  kernel<<<grid, nw * 32, smem, stream>>>(idx, val, x, y, plan.ptr, plan.blk,
+                                          plan.bits, k_slots, lanes, lcap);
 }
 
 }  // namespace graphhp
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// an unknown semiring or a fold block other than min(128, K)).  `lanes` is
-// 1 for an (N,) frontier; `n_src` is the frontier's N.
+// an unknown semiring, a fold block other than min(128, K), or K > 128
+// without a block plan: ptr always, where nnzb > 0 also blk and bits, and
+// at lanes == 1 row and part).  `lanes` is 1 for an (N,) frontier; `n_src` is
+// the frontier's N.  The plan's arguments come last, so a launcher written
+// for the signature before them still reads its own.
 extern "C" int graphhp_ell_spmv(int semiring, const void* idx,
                                 const void* val, const void* msk,
                                 const void* x, void* y, long long rows,
                                 long long n_src, int k_slots, int lanes,
-                                int bk, void* stream) {
+                                int bk, void* stream, const void* ptr,
+                                const void* blk, const void* row,
+                                long long nnzb, void* part, const void* bits) {
   using namespace graphhp;
   if (bk != std::min(kFold, k_slots) || lanes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const BlockPlan plan{static_cast<const int*>(ptr), static_cast<const int*>(blk),
+                       static_cast<const int*>(row), nnzb, static_cast<float*>(part),
+                       static_cast<const unsigned*>(bits)};
+  if (k_slots > kFold &&
+      (!plan.ptr || (nnzb > 0 && (!plan.blk || !plan.bits ||
+                                  (lanes == 1 && (!plan.row || !plan.part))))))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (semiring) {
-    case kAddMul: launch<kAddMul>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
-    case kMinAdd: launch<kMinAdd>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
-    case kMaxAdd: launch<kMaxAdd>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
-    case kMinMul: launch<kMinMul>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
-    case kMaxMin: launch<kMaxMin>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, s); break;
+    case kAddMul: launch<kAddMul>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, plan, s); break;
+    case kMinAdd: launch<kMinAdd>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, plan, s); break;
+    case kMaxAdd: launch<kMaxAdd>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, plan, s); break;
+    case kMinMul: launch<kMinMul>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, plan, s); break;
+    case kMaxMin: launch<kMaxMin>(idx, val, msk, x, y, rows, n_src, k_slots, lanes, plan, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

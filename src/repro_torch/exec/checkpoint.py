@@ -41,17 +41,21 @@ def checkpoint_key(graph, prog, vdata: Any = None) -> dict:
 
     Always: the graph content digest (the same ``io.digest.graph_digest``
     the ingest benchmark pins builder identity with) + the program's class
-    name.  K-lane programs additionally pin ``lanes`` and the
-    ``sources_digest`` of their (K,) sources/seeds (static or via
-    ``vdata={"sources": ...}``) — one checkpoint family per (program, K,
-    sources) dispatch, so a resumed batch can never restore another
-    batch's state.
+    name.  A graph never changes once built (its ELL block plans rely on
+    that too), so its digest is computed once per graph object and kept in
+    ``graph.__dict__``, which no copy carries.  K-lane programs
+    additionally pin ``lanes`` and the ``sources_digest`` of their (K,)
+    sources/seeds (static or via ``vdata={"sources": ...}``) — one
+    checkpoint family per (program, K, sources) dispatch, so a resumed
+    batch can never restore another batch's state.
     """
     from repro_torch.core.apps.multi import sources_digest
     from repro_torch.io.digest import graph_digest
 
-    key = {"graph_digest": graph_digest(graph),
-           "program": type(prog).__name__}
+    digest = graph.__dict__.get("_digest")
+    if digest is None:
+        digest = graph.__dict__["_digest"] = graph_digest(graph)
+    key = {"graph_digest": digest, "program": type(prog).__name__}
     lanes = max((int(getattr(ch, "lanes", 0) or 0) for ch in prog.channels),
                 default=0)
     if lanes:

@@ -75,8 +75,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.exec.syncs import host_read
-from repro_torch.kernels.common import LAUNCHES, LANE_LAUNCHES, TripCount, \
-    defer_launches
+from repro_torch.kernels.common import BIN_LAUNCHES, LAUNCHES, \
+    LANE_LAUNCHES, TripCount, defer_launches
 
 __all__ = ["while_loop", "graph_cache", "host_loops", "BUILDS",
            "reset_builds"]
@@ -280,14 +280,17 @@ def _fill(body, handle, loop: "_Loop") -> None:
 
 # -- building a loop ---------------------------------------------------------
 
+_COUNTS = (LAUNCHES, LANE_LAUNCHES, BIN_LAUNCHES)
+
+
 def _snapshot():
-    return dict(LAUNCHES), dict(LANE_LAUNCHES)
+    return tuple(dict(d) for d in _COUNTS)
 
 
 def _restore(snap):
     """Put the counts back to ``snap``; returns what was added since."""
     added = []
-    for d, old in zip((LAUNCHES, LANE_LAUNCHES), snap):
+    for d, old in zip(_COUNTS, snap):
         added.append({k: v - old.get(k, 0) for k, v in d.items()
                       if v != old.get(k, 0)})
         d.clear()
@@ -434,13 +437,14 @@ def _build(cond_fn, body_fn, spec, leaves) -> _Loop:
             raise
         finally:
             _FRAMES.pop()
-            per_trip, lane = _restore(snap)
+            per_trip, lane, bins = _restore(snap)
     if cap.built:
         raise RuntimeError("while_loop: a nested loop was called at warm-up "
                            "but not at capture")
     nested = sum(isinstance(i, _Loop) for i in loop.items)
     per_trip["graph_loop"] = per_trip.get("graph_loop", 0) + 1 + nested
     loop.count.per_trip, loop.count.lane_per_trip = per_trip, lane
+    loop.count.bin_per_trip = bins
     return loop
 
 
@@ -462,7 +466,7 @@ def _launcher(loop: _Loop) -> torch.cuda.CUDAGraph:
                 g.capture_end()
             raise
         finally:
-            added, _ = _restore(snap)
+            added = _restore(snap)[0]
         g.capture_end()
     added["graph_loop"] = added.get("graph_loop", 0) + 1
     loop.entry_launches = added

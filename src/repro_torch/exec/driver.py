@@ -25,7 +25,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from repro_torch.core.runtime import EngineState, quiescent
+from repro_torch.core.runtime import EngineState, build_ell_plans, quiescent
 from repro_torch.exec.device_loop import graph_cache, while_loop
 from repro_torch.exec.policy import EnginePolicy
 from repro_torch.exec.syncs import host_read, host_read_int
@@ -105,6 +105,7 @@ def run_engine(
     host boundary between steps), so it rejects hooks that override the
     per-step methods, and a policy whose ``halt`` reads the host.
     """
+    build_ell_plans(graph)        # before any capture reads them
     fresh = es is None
     if fresh:
         es = policy.init(graph, prog, vdata)

@@ -28,8 +28,8 @@ import torch
 from repro_torch.core.graph import PartitionedGraph
 from repro_torch.core.runtime import (EngineState, _has_any_pending,
                                       apply_phase, deliver,
-                                      ell_combine_bins, ell_send_accounting,
-                                      slice_flat)
+                                      ell_combine_bins, ell_plans,
+                                      ell_send_accounting, slice_flat)
 from repro_torch.core.vertex_program import StepInfo, VertexProgram
 from repro_torch.exec.device_loop import while_loop
 from repro_torch.kernels.common import (MONOTONE_SEMIRINGS, SEMIRINGS, f32,
@@ -99,7 +99,7 @@ def _spill_extra(graph: PartitionedGraph, prog, ch, slices, views, out_d,
     extra = torch.full((p * graph.vp,) + tuple(x.shape[1:]), ident,
                        dtype=torch.float32, device=x.device)
     return ell_combine_bins(prog, ch, slices[1:], views[1:], x, extra,
-                            spmv=spmv)
+                            spmv=spmv, plans=ell_plans(graph, "local")[1:])
 
 
 def fused_step_fn(graph: PartitionedGraph, prog: VertexProgram, kind: str,

@@ -18,8 +18,9 @@ import torch
 
 __all__ = ["minimum", "maximum", "SEMIRINGS", "SEMIRING_IDS", "MONOTONE_SEMIRINGS", "FOLD_SLICES",
            "semiring_improves", "fold_block", "slot_fold", "f32", "LAUNCHES",
-           "LANE_LAUNCHES", "reset_launches", "TripCount", "defer_launches",
-           "unsettled", "settle_launches", "check_ell_operands",
+           "LANE_LAUNCHES", "BIN_LAUNCHES", "reset_launches", "TripCount",
+           "defer_launches", "unsettled", "settle_launches",
+           "check_ell_operands",
            "check_rows", "require_cuda_contiguous", "ell_pack_numpy",
            "ell_bin_widths", "sliced_ell_pack_numpy"]
 
@@ -76,17 +77,22 @@ LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0, "graph_loop": 0}
 # K-lane programs' queries), counted at the same place; ell_spmv's also by
 # bin, under "ell_spmv <rows>x<K>" (a key appears at its first launch)
 LANE_LAUNCHES = {"ell_spmv": 0, "min_step": 0, "pr_step": 0}
+# ell_spmv's other launches (an (N,) frontier) by bin, "ell_spmv <rows>x<K>",
+# counted at the same place (a key appears at its first launch)
+BIN_LAUNCHES: dict[str, int] = {}
 
 
 class TripCount:
     """The launches one trip of a captured loop body makes (``per_trip``,
-    ``lane_per_trip``, known at capture) and a device counter of the trips
-    run (``trips``, () int64, advanced by the body itself)."""
+    ``lane_per_trip``, ``bin_per_trip``, known at capture) and a device
+    counter of the trips run (``trips``, () int64, advanced by the body
+    itself)."""
 
     def __init__(self, device):
         self.trips = torch.zeros((), dtype=torch.int64, device=device)
         self.per_trip: dict[str, int] = {}
         self.lane_per_trip: dict[str, int] = {}
+        self.bin_per_trip: dict[str, int] = {}
         self.seen = 0          # trips already folded into LAUNCHES
 
 
@@ -115,6 +121,8 @@ def settle_launches(counts: list[TripCount], trips: list[int]) -> None:
             LAUNCHES[k] += new * m
         for k, m in c.lane_per_trip.items():
             LANE_LAUNCHES[k] = LANE_LAUNCHES.get(k, 0) + new * m
+        for k, m in c.bin_per_trip.items():
+            BIN_LAUNCHES[k] = BIN_LAUNCHES.get(k, 0) + new * m
         _UNSETTLED.pop(id(c), None)
 
 
@@ -127,6 +135,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     for k in LANE_LAUNCHES:
         LANE_LAUNCHES[k] = 0
+    BIN_LAUNCHES.clear()
 
 
 def semiring_improves(semiring: str):

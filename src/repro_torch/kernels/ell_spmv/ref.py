@@ -12,8 +12,9 @@ import torch
 from repro_torch.kernels.common import SEMIRINGS, slot_fold
 
 
-def ell_spmv_ref(idx, val, msk, x, *, semiring: str = "add_mul"):
-    """y[r] = ⊕_k msk[r,k] ? val[r,k] ⊗ x[idx[r,k]] : ident, (R,) or (R, L)."""
+def ell_spmv_ref(idx, val, msk, x, *, semiring: str = "add_mul", plan=None):
+    """y[r] = ⊕_k msk[r,k] ? val[r,k] ⊗ x[idx[r,k]] : ident, (R,) or (R, L).
+    ``plan`` (the kernel's block plan) is ignored: every slot folds."""
     combine, times, ident = SEMIRINGS[semiring]
     col = (lambda a: a[..., None]) if x.dim() == 2 else (lambda a: a)
     if idx.shape[1] == 0:

@@ -62,7 +62,7 @@ import torch
 from repro_torch.core.apps.multi import (MultiSourceMonotone,
                                          PersonalizedPageRank, reachable)
 from repro_torch.core.graph import PartitionedGraph, unpack_vertex
-from repro_torch.core.runtime import quiescent
+from repro_torch.core.runtime import build_ell_plans, quiescent
 from repro_torch.device import check_graph_device
 from repro_torch.exec.checkpoint import (CheckpointHook, checkpoint_key,
                                          drop_converged_lanes,
@@ -280,6 +280,8 @@ class ServeEngine:
             graph = build_partitioned_graph_from_path(
                 graph, device=device, **(build_kwargs or {}))
         check_graph_device(graph, device)
+        if use_ell:
+            build_ell_plans(graph)    # before any capture reads them
         self.graph = graph
         self.lane_widths = tuple(sorted(lane_widths))
         self.use_ell = use_ell

@@ -35,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.common import LANE_LAUNCHES, LAUNCHES, SEMIRINGS
+from repro_torch.kernels.common import (BIN_LAUNCHES, LANE_LAUNCHES,
+                                        LAUNCHES, SEMIRINGS)
 from repro_torch.kernels.ell_spmv import ell_spmv, ell_spmv_ref, to_ell
 from repro_torch.kernels.min_step import fused_min_step, fused_min_step_ref
 from repro_torch.kernels.pr_step import fused_pr_step, fused_pr_step_ref
@@ -395,18 +396,26 @@ def _element_off(t, n=1):
 
 def _kernel_names(fn, want):
     """Names of the CUDA kernels ``fn()`` launched (``torch.profiler``),
-    over up to three sessions, until each name of ``want`` is a substring
-    of one: now and then a session's device records are lost whole (only
-    the host's runtime calls come back; H100, torch 2.11), which can hide
-    a kernel but never show one that did not run.  Returns the names and
-    the number of sessions (each called ``fn`` once)."""
+    session after session until each name of ``want`` is a substring of
+    one, over up to three sessions that return device records.  Now and
+    then a session's device records are lost whole (only the host's
+    runtime calls come back; H100, torch 2.11; three sessions in a row
+    have been seen to lose them), which can hide a kernel but never show
+    one that did not run: such a session is not one of the three, up to
+    eight sessions in all.  Returns the names and the number of sessions
+    (each called ``fn`` once)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    names = set()
-    for n in range(1, 4):
+    names, seen, n = set(), 0, 0
+    while seen < 3 and n < 8:
+        n += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names |= {e.key for e in prof.key_averages()}
+        got = {e.key for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        seen += bool(got)
+        names |= got
         if all(any(w in k for k in names) for w in want):
             break
     return names, n
@@ -437,8 +446,11 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
     thread-per-(row, lane) kernels.  ``ell_spmv`` also at K = 128, 136
     and 300, the wide bins: with L % 4 == 0 beyond 4 lanes and an aligned
     frontier they take the lane path (the ``true`` instances), otherwise
-    the scalar 4-lane chunks (checked by kernel name, and each wide bin's
-    launches counted under its shape)."""
+    the scalar 4-lane chunks; with an (N,) frontier at K = 136 and 300 the
+    planned kernel, a warp per occupied fold block (checked by kernel
+    name, and each wide bin's launches counted under its shape, with
+    lanes in ``LANE_LAUNCHES``, without in ``BIN_LAUNCHES``), also on a
+    tile of no occupied slot (an empty block plan)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     front = _element_off if offset == "element" else (lambda t: t)
@@ -448,6 +460,7 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
                                    _t(*_inputs(9, 136, lanes)))
     x, send, row = front(x), front(send), front(row)
     before, lane_before = dict(LAUNCHES), dict(LANE_LAUNCHES)
+    bin_before = dict(BIN_LAUNCHES)
     for sr in ALL:
         _bits_equal(ell_spmv_ref(idx, val, msk, x, semiring=sr).cpu().numpy(),
                     ell_spmv(idx, val, msk, x, semiring=sr).cpu())
@@ -552,11 +565,24 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
                 "ell_block_rows_kernel<1, "
             on, off = kernel + ("true>" if vec else "false>"), \
                 kernel + ("false>" if vec else "true>")
-            names, sessions = _kernel_names(
-                lambda: ell_spmv(idx, val, msk, x, semiring="min_add"), (on,))
-            calls["ell_spmv"] += sessions
-            bins[shape] += sessions
-            _expect_kernels(names, (on,), (off,), k)
+        elif k > 128:
+            # an (N,) frontier on a wide bin: a warp per plan entry
+            on, off = "ell_plan_blocks_kernel<1>", "ell_block_rows_kernel<"
+        else:
+            continue
+        names, sessions = _kernel_names(
+            lambda: ell_spmv(idx, val, msk, x, semiring="min_add"), (on,))
+        calls["ell_spmv"] += sessions
+        bins[shape] += sessions
+        _expect_kernels(names, (on,), (off,), k)
+    # a wide tile of no occupied slot: an empty block plan
+    idx, val, msk, x, _, _ = (t.cuda() for t in _t(*_inputs(950, 300, lanes)))
+    msk, x = torch.zeros_like(msk), front(x)
+    for sr in ALL:
+        _bits_equal(ell_spmv_ref(idx, val, msk, x, semiring=sr).cpu().numpy(),
+                    ell_spmv(idx, val, msk, x, semiring=sr).cpu())
+    calls["ell_spmv"] += len(ALL)
+    bins[f"{R}x300"] += len(ALL)
     lanes_on = lanes > 1
     for name, n in calls.items():
         assert LAUNCHES[name] == before[name] + n, (name, n)
@@ -566,3 +592,5 @@ def test_cuda_kernels_match_plain_versions(lanes, offset):
         key = f"ell_spmv {shape}"
         assert LANE_LAUNCHES.get(key, 0) == \
             lane_before.get(key, 0) + lanes_on * n, (key, n)
+        assert BIN_LAUNCHES.get(key, 0) == \
+            bin_before.get(key, 0) + (not lanes_on) * n, (key, n)

@@ -64,6 +64,7 @@ def launchers(libs):
     import torch
     from repro_torch.kernels.common import SEMIRING_IDS, fold_block
     from repro_torch.kernels.ell_spmv.ops import _ARGS as SPMV_ARGS
+    from repro_torch.kernels.ell_spmv.ops import plan_args
     from repro_torch.kernels.min_step.ops import _ARGS as MIN_ARGS
 
     out = {}
@@ -94,7 +95,8 @@ def launchers(libs):
             rc = fs(SEMIRING_IDS[sr], idx.data_ptr(), val.data_ptr(),
                     msk.data_ptr(), x.data_ptr(), y.data_ptr(), rows,
                     x.shape[0], k, x.shape[1], fold_block(k),
-                    torch.cuda.current_stream().cuda_stream)
+                    torch.cuda.current_stream().cuda_stream,
+                    *plan_args(None))          # K <= 128: no block plan
             if rc:
                 raise RuntimeError(f"ell_spmv: CUDA error {rc}")
             return y

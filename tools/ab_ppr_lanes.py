@@ -111,7 +111,9 @@ def launchers(lib: dict, damping: float, tol: float):
     wrappers do; None for a source the variant does not build."""
     import torch
     from repro_torch.kernels.common import SEMIRING_IDS, f32, fold_block
+    from repro_torch.kernels.ell_spmv import ell_block_plan
     from repro_torch.kernels.ell_spmv.ops import _ARGS as SPMV_ARGS
+    from repro_torch.kernels.ell_spmv.ops import plan_args
     from repro_torch.kernels.pr_step.ops import _ARGS as PR_ARGS
 
     fp = fs = None
@@ -137,13 +139,21 @@ def launchers(lib: dict, damping: float, tol: float):
             raise RuntimeError(f"pr_step: CUDA error {rc}")
         return rank_out, d_out, s_out
 
+    plans = {}
+
     def ell_spmv(idx, val, msk, x):
         rows, k = idx.shape
         y = torch.empty((rows, x.shape[1]), device=x.device)
+        # a wide bin's block plan, built once per bin (by shape: the cold
+        # copies of a bin's mask are its mask; the parent's sources take no
+        # plan and ignore these trailing arguments)
+        if k > 128 and (rows, k) not in plans:
+            plans[rows, k] = ell_block_plan(msk)
         rc = fs(SEMIRING_IDS["add_mul"], idx.data_ptr(), val.data_ptr(),
                 msk.data_ptr(), x.data_ptr(), y.data_ptr(), rows, x.shape[0],
                 k, x.shape[1], fold_block(k),
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream,
+                *plan_args(plans.get((rows, k))))
         if rc:
             raise RuntimeError(f"ell_spmv: CUDA error {rc}")
         return y

@@ -72,7 +72,7 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels.common import SEMIRING_IDS
-    from repro_torch.kernels.ell_spmv.ops import _ARGS
+    from repro_torch.kernels.ell_spmv.ops import _ARGS, plan_args
 
     libs = build_variants(os.path.join(ROOT, "build", "ab_two_rows"))
     fns = {}
@@ -99,7 +99,8 @@ def main() -> int:
         idx, val, msk, x = ops
         rc = fns[name](SEMIRING_IDS["add_mul"], idx.data_ptr(),
                        val.data_ptr(), msk.data_ptr(), x.data_ptr(),
-                       y.data_ptr(), rows, args.n, k, 1, k, stream)
+                       y.data_ptr(), rows, args.n, k, 1, k, stream,
+                       *plan_args(None))       # K = 128: no block plan
         if rc:
             raise RuntimeError(f"{name}: CUDA error {rc}")
 
